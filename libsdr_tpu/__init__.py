@@ -1,6 +1,6 @@
-"""libsdr_tpu — a TPU-native software-defined-radio framework.
+"""libsdr_tpu — a JAX software-defined-radio framework for accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of hmatuschek/libsdr
+A from-scratch JAX/XLA re-design of the capabilities of hmatuschek/libsdr
 (reference mounted at /root/reference). The reference is a pthread push-dataflow
 graph of stateful per-sample C++ nodes (reference: src/node.hh, src/queue.cc);
 this framework instead models a radio pipeline as a *pure function over

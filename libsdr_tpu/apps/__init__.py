@@ -2,7 +2,7 @@
 examples/sdr_wavplay, sdr_fm, sdr_rec, sdr_rtty, sdr_pocsag, sdr_ax25 and the
 cmd/ APRS web app).
 
-TPU hosts have neither a sound card (PortAudio) nor an RTL2832 dongle, so
+Accelerator servers have neither a sound card (PortAudio) nor an RTL2832 dongle, so
 audio output becomes a WAV file / stdout and live ingest becomes file or raw
 capture input; everything else is chain-for-chain the same.
 

@@ -1,7 +1,7 @@
 """AX.25 / APRS receiver CLI (reference: examples/sdr_ax25.cc).
 
 Input is either demodulated audio (AFSK1200 tones) or an IQ capture (then an
-NFM demod front end runs first); FSK detector + bit-sync run on TPU, HDLC
+NFM demod front end runs first); FSK detector + bit-sync run on the device, HDLC
 deframing and APRS parsing on the host.
 """
 

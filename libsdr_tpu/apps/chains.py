@@ -31,6 +31,22 @@ def fm_chain(fs: float, block: int, fc: float = 0.0, width: float = 200e3,
     return p
 
 
+def fm_bank(n_channels: int, block: int, fs: float = 960_000.0,
+            plane_dtype=None) -> Pipeline:
+    """The FM receive bank of the README quick start and ``bench.py``:
+    IQBaseBand(order=64, decim=4) -> FMDemod -> FMDeemph over
+    ``n_channels`` channels at ``fs`` (carrier at fs/8)."""
+    p = Pipeline([
+        IQBaseBand(fc=fs / 8, width=fs / 4.8, order=64, decim=4,
+                   design="textbook"),
+        FMDemod(),
+        FMDeemph(),
+    ], name="fm_rx_bank")
+    p.bind(StreamSpec(np.complex64, fs, block, channels=(n_channels,),
+                      plane_dtype=plane_dtype))
+    return p
+
+
 def fm_stages(fs, fc=0.0, width=200e3, order=64, audio_rate=48e3,
               deviation=75e3, deemph=True):
     """Stage list for :func:`fm_chain` (reusable for live mode switching)."""

@@ -1,6 +1,6 @@
 """POCSAG pager receiver CLI (reference: examples/sdr_pocsag.cc).
 
-IQ capture -> IQBaseBand -> FM demod -> ASK detector -> bit-sync PLL (TPU)
+IQ capture -> IQBaseBand -> FM demod -> ASK detector -> bit-sync PLL (device)
 -> POCSAG FSM + BCH repair (host) -> printed pages.
 """
 

@@ -1,7 +1,7 @@
 """RTTY (Baudot) receiver CLI (reference: examples/sdr_rtty.cc).
 
 Audio (FSK tones) -> FSKDetector at 2x baud (half-bits) -> bit-sync PLL
-(TPU) -> Baudot/ITA2 decode (host) -> text.
+(device) -> Baudot/ITA2 decode (host) -> text.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Wideband pager scanner — the flagship end-to-end pipeline.
 
-One wideband IQ capture -> polyphase channelizer (M uniform channels on the
-MXU) -> per-channel FM discriminator -> ASK + bit-sync PLL (all channels
-batched on the TPU) -> native C++ POCSAG FSMs per channel (host).  The
+One wideband IQ capture -> polyphase channelizer (M uniform channels) ->
+per-channel FM discriminator -> ASK + bit-sync PLL (all channels batched on
+the device) -> native C++ POCSAG FSMs per channel (host).  The
 reference can only do this one channel at a time (examples/sdr_pocsag.cc
 tunes a single channel); here the whole band decodes concurrently.
 
@@ -49,12 +49,11 @@ def pick_block(fs: float, n_channels: int, block: int = None,
     return block
 
 
-def scan_blocks(blocks, fs: float, n_channels: int, block: int,
-                baud: float = 1200.0, plane_dtype=None):
-    """Core scanner loop over an iterable of (block,)-sized IQ blocks
-    (numpy complex or planar Complex, e.g. bf16 planes straight off the
-    u8 wire via io.ingest.stream_raw_iq_bf16).  Returns
-    {channel_index: [POCSAGMessage, ...]}."""
+def scanner_step(fs: float, n_channels: int, block: int,
+                 baud: float = 1200.0, plane_dtype=None):
+    """The scanner's single-device step: (step, init_carry, place_input)
+    of parallel/wideband.build_scanner_step with packed output and the
+    lossless on-device bit-compaction window."""
     import jax
     from jax.sharding import Mesh
     from libsdr_tpu.core.ragged import min_valid_gap, pick_window
@@ -71,10 +70,19 @@ def scan_blocks(blocks, fs: float, n_channels: int, block: int,
     gap = min_valid_gap((baud / (fs / m)) * 1.005)
     w = pick_window(gap, t_full)
     mesh = Mesh(np.asarray(jax.devices()[:1]), ("d",))
-    sstep, sinit, splace = build_scanner_step(mesh, m, block, fs, baud=baud,
-                                              compact_window=w,
-                                              plane_dtype=plane_dtype,
-                                              packed=True)
+    return build_scanner_step(mesh, m, block, fs, baud=baud,
+                              compact_window=w, plane_dtype=plane_dtype,
+                              packed=True)
+
+
+def scan_blocks(blocks, fs: float, n_channels: int, block: int,
+                baud: float = 1200.0, plane_dtype=None):
+    """Core scanner loop over an iterable of (block,)-sized IQ blocks
+    (numpy complex or planar Complex, e.g. bf16 planes straight off the
+    u8 wire via io.ingest.stream_raw_iq_bf16).  Returns
+    {channel_index: [POCSAGMessage, ...]}."""
+    m = n_channels
+    sstep, sinit, splace = scanner_step(fs, m, block, baud, plane_dtype)
     carry = sinit()
     # Packed bits (one uint8 per slot, bit 0 = data, bit 1 = valid) halve
     # the readback; a 2-deep pending window keeps the device busy while
@@ -103,9 +111,8 @@ def scan(iq: np.ndarray, fs: float, n_channels: int, block: int = None,
     """Decode every channel of a wideband capture; returns
     {channel_index: [POCSAGMessage, ...]} for channels with traffic.
 
-    Uses the fused single-chip scanner path (Pallas PFB+FM kernel ->
-    lane-major bit chain -> windowed on-device bit compaction,
-    parallel/wideband.py)."""
+    Uses the single-device scanner step (channelizer + FM -> time-major
+    bit chain -> windowed on-device bit compaction, parallel/wideband.py)."""
     block = pick_block(fs, n_channels, block)
     return scan_blocks(stream_blocks(iq, block), fs, n_channels, block,
                        baud=baud)
@@ -119,8 +126,8 @@ def main(argv=None):
     ap.add_argument("--baud", type=float, default=1200.0)
     ap.add_argument("--bf16", action="store_true",
                     help="stream the u8 wire format as bfloat16 planes "
-                         "straight into the PFB kernel — lossless for "
-                         "8-bit sources, halves ingest+HBM traffic "
+                         "straight into the channelizer — lossless for "
+                         "8-bit sources, halves ingest traffic "
                          "(--raw uint8 sources only)")
     ap.add_argument("--live",
                     help="live u8 IQ wire instead of a file: tcp://host:port "

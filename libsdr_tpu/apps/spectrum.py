@@ -1,4 +1,4 @@
-"""Spectrum analyzer CLI — Welch PSD + waterfall on the MXU matmul FFT.
+"""Spectrum analyzer CLI — Welch PSD + waterfall on the matmul FFT.
 
 The reference's spectrum display lives in its separate GUI (sdr-rx, which
 uses the L4 FFT layer); this is the batch equivalent: average periodograms

@@ -28,15 +28,6 @@ from libsdr_tpu.ops import siggen
 from libsdr_tpu.utils.options import common_parser
 
 
-def _nrzi(bits: np.ndarray) -> np.ndarray:
-    line, cur = [], 0
-    for b in bits:
-        if b == 0:
-            cur ^= 1
-        line.append(cur)
-    return np.asarray(line, np.uint8)
-
-
 def synthesize(mode: str, fs: float, args) -> np.ndarray:
     if mode == "fm":
         n = int(fs * args.seconds)
@@ -58,7 +49,7 @@ def synthesize(mode: str, fs: float, args) -> np.ndarray:
         # 0.17% TX clock offset: real transmitters always have one, and a
         # perfectly synchronous signal parks bit PLLs at their metastable
         # point.
-        audio = siggen.fsk_modulate(fs, _nrzi(frame), args.baud * 1.0017,
+        audio = siggen.fsk_modulate(fs, siggen.nrzi(frame), args.baud * 1.0017,
                                     1200.0, 2200.0).real
         return np.concatenate([audio, np.zeros(int(fs * 0.2), np.float32)])
     if mode == "rtty":
@@ -101,7 +92,7 @@ def main(argv=None):
     p.add_argument("--carrier", type=float, default=120e3)
     p.add_argument("--baud", type=float, default=1200.0)
     p.add_argument("--address", type=int, default=4242)
-    p.add_argument("--text", default="TPU SDR TEST")
+    p.add_argument("--text", default="LIBSDR TEST")
     p.add_argument("--from-call", default="N0CALL")
     p.add_argument("--to-call", default="APRS")
     p.add_argument("--info", default="!4903.50N/07201.75W-libsdr_tpu")

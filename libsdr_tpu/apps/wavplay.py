@@ -1,5 +1,5 @@
 """WAV pass-through (reference: examples/sdr_wavplay.cc WavSource ->
-PortSink).  TPU hosts have no sound card; this validates the WAV source /
+PortSink).  Accelerator servers have no sound card; this validates the WAV source /
 runtime path and writes the (optionally gain-adjusted) audio back out."""
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Processor protocol — the TPU-native analog of the reference's node classes.
+"""Processor protocol — the array-native analog of the reference's node classes.
 
 A reference node is a ``Sink<T>`` + ``Source`` with three responsibilities
 (reference: src/node.hh:174-258):
@@ -19,7 +19,7 @@ Here these become:
    under ``jax.jit`` and therefore free of data-dependent Python control flow.
 
 All processors treat the trailing axis as time and broadcast over arbitrary
-leading (channel) axes — that is where data parallelism comes from on TPU.
+leading (channel) axes — that is where data parallelism comes from on the device.
 """
 
 from __future__ import annotations

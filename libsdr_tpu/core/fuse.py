@@ -28,24 +28,10 @@ from __future__ import annotations
 from typing import List
 
 
-def _on_tpu() -> bool:
-    """Whether fused ops may be installed: kernels available in the current
-    kernel_mode (auto-on-TPU, or interpret mode forcing them anywhere).  The
-    fused ops carry exact XLA fallbacks, so fusing is always correct — this
-    gate only decides where the rewrite is *profitable*."""
-    try:
-        from libsdr_tpu.ops.fir import kernel_dispatch
-        return kernel_dispatch()[0]
-    except Exception:
-        return False
-
-
 def reset_fusion_state(stages: List) -> None:
     """Clear the fusion state fuse_stages writes onto stage INSTANCES
-    (folded rotations, fold_nco flags).  Called before every rewrite, and
-    by Pipeline._bind's unfused fallback — restoring the original stage
-    list after a fused bind failure without this would leave a dropped
-    FreqShift's rotation folded in the demod and apply it twice."""
+    (folded rotations, fold_nco flags).  Called before every rewrite, so
+    that re-binding never applies a folded rotation twice."""
     from libsdr_tpu.ops.baseband import IQBaseBand
     from libsdr_tpu.ops.demod import FMDemod
 
@@ -86,73 +72,6 @@ def fuse_stages(stages: List) -> List:
         if (isinstance(st, FreqShift) and st.mode == "exact"
                 and isinstance(nxt, AMDemod)):
             i += 1  # |x| is rotation-invariant: drop outright
-            continue
-        from libsdr_tpu.ops.fsk import FSKDetector
-        if (isinstance(st, IQBaseBand) and type(st) is IQBaseBand
-                and _demod_takes_rot(nxt)
-                and not nxt._pending_rot_freqs
-                and i + 2 < len(stages)
-                and type(stages[i + 2]) is FSKDetector
-                and _on_tpu()):
-            # AFSK chain [IQBaseBand -> FMDemod -> FSKDetector]: one op
-            # emits the uint8 symbol stream straight from raw IQ (on wide
-            # banks via ONE Pallas pass — FIR + discriminator + dual-tone
-            # correlator; neither baseband nor audio touches HBM).
-            from libsdr_tpu.ops.afsk_fused import AFSKFrontendFused
-            out.append(AFSKFrontendFused(st, nxt, stages[i + 2]))
-            i += 3
-            continue
-        if (isinstance(st, IQBaseBand) and type(st) is IQBaseBand
-                and _demod_takes_rot(nxt)
-                and not nxt._pending_rot_freqs
-                and _on_tpu()):
-            # Full fusion: one op computes audio straight from raw IQ (on
-            # wide banks via the pallas kernel — the complex baseband never
-            # touches HBM).  Exactly equal math to the fold-rotation path.
-            from libsdr_tpu.ops.demod import FMDeemph
-            from libsdr_tpu.ops.fm_fused import FMBasebandFused
-            fused = FMBasebandFused(st, nxt)
-            i += 2
-            nxt2 = stages[i] if i < len(stages) else None
-            if isinstance(nxt2, FMDeemph) and nxt2.enabled:
-                # The de-emphasis IIR rides along in the kernel (frame
-                # matmul vs its impulse-response matrix + carried state).
-                fused.absorb_deemph(nxt2)
-                i += 1
-            out.append(fused)
-            continue
-        from libsdr_tpu.ops.channelizer import Channelizer
-        if (type(st) is Channelizer and _demod_takes_rot(nxt)
-                and not nxt._pending_rot_freqs and _on_tpu()):
-            # Channelizer -> FMDemod: one Pallas pass over the wideband
-            # stream writing only audio (ops/wideband_rx.py); 'channel'
-            # layout keeps the pair's exact (M, t) output contract.
-            from libsdr_tpu.ops.wideband_rx import WidebandFM
-            out.append(WidebandFM(st.m, st.p, gain=float(nxt.gain),
-                                  prototype=st._proto, layout="channel"))
-            i += 2
-            continue
-        from libsdr_tpu.ops.demod import USBDemod
-        if (isinstance(st, IQBaseBand) and type(st) is IQBaseBand
-                and isinstance(nxt, USBDemod) and _on_tpu()):
-            # Full SSB fusion (exact per-output NCO phasor in-kernel).
-            from libsdr_tpu.ops.agc import AGC
-            from libsdr_tpu.ops.fm_fused import USBBasebandFused
-            nxt2 = stages[i + 2] if i + 2 < len(stages) else None
-            agc = nxt2 if isinstance(nxt2, AGC) and nxt2.enabled else None
-            out.append(USBBasebandFused(st, agc))
-            i += 3 if agc is not None else 2
-            continue
-        if (isinstance(st, IQBaseBand) and type(st) is IQBaseBand
-                and isinstance(nxt, AMDemod) and _on_tpu()):
-            # Full AM fusion: band-pass FIR + |y| envelope (+ AGC) in one
-            # op; on wide banks the Pallas kernel writes only f32 audio.
-            from libsdr_tpu.ops.agc import AGC
-            from libsdr_tpu.ops.fm_fused import AMBasebandFused
-            nxt2 = stages[i + 2] if i + 2 < len(stages) else None
-            agc = nxt2 if isinstance(nxt2, AGC) and nxt2.enabled else None
-            out.append(AMBasebandFused(st, agc))
-            i += 3 if agc is not None else 2
             continue
         if (isinstance(st, IQBaseBand) and st.fc != 0.0
                 and (_demod_takes_rot(nxt) or isinstance(nxt, AMDemod))):

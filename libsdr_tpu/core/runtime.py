@@ -1,8 +1,8 @@
-"""Host streaming driver — the TPU-native analog of the reference's ``Queue``.
+"""Host streaming driver — the array-native analog of the reference's ``Queue``.
 
 The reference runs a singleton message loop in one pthread: sources enqueue
 buffers, the loop dispatches each to its sink, and idle callbacks re-prime
-file sources (reference: src/queue.cc:83-125).  On TPU the device is the
+file sources (reference: src/queue.cc:83-125).  Here the device is the
 worker: the host driver streams fixed-size blocks from a source iterator into
 one jitted step function and hands results to a sink callback.  JAX dispatch
 is asynchronous, so while the device computes block *i* the host is already

@@ -1,4 +1,4 @@
-"""Stream metadata — the TPU-native analog of the reference's ``sdr::Config``.
+"""Stream metadata — the array-native analog of the reference's ``sdr::Config``.
 
 The reference propagates a ``Config{type, sampleRate, bufferSize, numBuffers}``
 record through the node graph on connect/reconfigure (reference: src/node.hh:35-168,
@@ -55,7 +55,7 @@ class StreamSpec:
       dtype: element dtype of one sample (e.g. ``jnp.complex64`` for IQ,
         ``jnp.float32`` for audio, ``jnp.uint8`` for symbol/bit streams).
         Mirrors ``Config::Type`` (reference: src/node.hh:40-56) except that the
-        TPU pipeline computes in float32/complex64 by default rather than the
+        device pipeline computes in float32/complex64 by default rather than the
         reference's fixed-point integer formats; fixed-point-exact paths are
         provided separately where decoder bit-parity demands them.
       sample_rate: samples per second, exact rational.
@@ -111,8 +111,8 @@ class StreamSpec:
 
     def zeros(self):
         """A zero block in the device representation: complex streams are
-        planar :class:`~libsdr_tpu.core.cplx.Complex` pytrees (TPU-native —
-        see cplx.py), real streams plain arrays."""
+        planar :class:`~libsdr_tpu.core.cplx.Complex` pytrees (see
+        cplx.py), real streams plain arrays."""
         if self.is_complex:
             from libsdr_tpu.core import cplx
             return cplx.zeros(self.shape, self.real_dtype)

@@ -2,7 +2,7 @@
 
 Bit-level framing/decoding state machines run on the host: downstream of the
 bit-sync PLL the data rate is ~1e3 bits/s/channel (SURVEY.md section 7 step
-4), so FSMs in numpy/python cost nothing while the TPU handles the Msps
+4), so FSMs in numpy/python cost nothing while the device handles the Msps
 front-end.  Each decoder consumes a dense bit vector (use
 :func:`libsdr_tpu.core.ragged.compact` on the PLL output).
 """

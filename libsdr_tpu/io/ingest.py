@@ -65,7 +65,7 @@ def u8_wire_to_planes(raw, plane_dtype=None):
 
     Jit-traceable — upload the RAW u8 wire bytes (2 B/sample: half the
     host->device traffic of bf16 planes, a quarter of f32) and convert on
-    the TPU.  ``(u8 - 128)/128`` is exact in bf16, so the result is
+    the device.  ``(u8 - 128)/128`` is exact in bf16, so the result is
     bit-identical to the host LUT path (``native.u8_iq_to_planar_bf16``);
     the wire format is the reference driver's
     (/root/reference/src/rtlsource.cc:141-145).  On a link-bound ingest

@@ -1,10 +1,10 @@
 """Live streaming ingest: IQ blocks from a network socket or FIFO, feeding
-the TPU pipeline from a live wire through the native SPSC ring + pump
+the device pipeline from a live wire through the native SPSC ring + pump
 thread.
 
-This is the production TPU analog of the reference's *live* sources — the
+This is the production analog of the reference's *live* sources — the
 rtl_sdr driver thread (reference: src/rtlsource.cc:133-145) and the
-PortAudio callback (reference: src/portaudio.cc:129-155): a TPU host has no
+PortAudio callback (reference: src/portaudio.cc:129-155): an accelerator server has no
 USB dongle or sound card, so the radio front end lives across a wire
 (classically an ``rtl_tcp`` server next to the antenna) and this module
 terminates that wire.  Live sources cannot block the sender, so overflow is

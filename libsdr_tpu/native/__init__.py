@@ -123,8 +123,8 @@ def u8_iq_to_planar(src: np.ndarray):
 def u8_iq_to_planar_bf16(src: np.ndarray):
     """Interleaved u8 IQ -> (re, im) bfloat16 planes (as uint16 bit
     patterns; view with ml_dtypes/jnp.bfloat16).  Lossless for 8-bit
-    sources and HALF the ingest/HBM traffic of f32 — the storage format
-    the fused Pallas kernels consume directly
+    sources and HALF the ingest and device-memory traffic of f32 — a
+    storage format the device pipeline consumes directly
     (AutoCast(compute='bfloat16') semantics at the native ingest)."""
     src = np.ascontiguousarray(src, dtype=np.uint8)
     n = len(src) // 2

@@ -4,11 +4,11 @@
 // one worker thread (reference: src/queue.cc), refcounted buffer pools and
 // ring buffers (reference: src/buffer.hh), and per-source ingest threads
 // (reference: src/node.cc:154-176 BlockingSource, src/rtlsource.cc:133-145).
-// On a TPU host the device does the DSP, so the native layer's job is the
+// On an accelerator host the device does the DSP, so the native layer's job is the
 // *feed path*: lock-free SPSC block framing between an ingest thread and the
 // Python driver, and branch-free wire-format -> planar-float conversion
 // (u8/s16 interleaved IQ -> separate re/im float32 planes, the layout the
-// TPU pipeline consumes).
+// device pipeline consumes).
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this image).
 
@@ -207,7 +207,7 @@ void pump_stop(Pump *p) {
 
 // ---------------------------------------------------------------------------
 // Live pump: socket/FIFO ingest threads feeding the same SPSC ring — the
-// production TPU analog of the reference's *live* driver-thread sources
+// production analog of the reference's *live* driver-thread sources
 // (reference: src/rtlsource.cc:133-145 rtl_sdr async callback thread,
 // src/portaudio.cc:129-155 PortAudio callback).  Live sources cannot block
 // the wire, so a full ring DISCARDS the overflow and accounts it — the

@@ -5,7 +5,7 @@ with time on the trailing axis, plus (where useful) a plain functional form.
 """
 
 from libsdr_tpu.ops import firdesign
-from libsdr_tpu.ops.fir import FIRFilter, set_mxu_precision, fir_overlap_save
+from libsdr_tpu.ops.fir import FIRFilter, fir_overlap_save
 from libsdr_tpu.ops.nco import FreqShift
 from libsdr_tpu.ops.baseband import IQBaseBand
 from libsdr_tpu.ops.demod import AMDemod, USBDemod, FMDemod, FMDeemph
@@ -24,7 +24,6 @@ from libsdr_tpu.ops.baseband import BaseBand
 from libsdr_tpu.ops.fft import fft
 from libsdr_tpu.ops.fftfilter import FFTFilterBank
 from libsdr_tpu.ops.channelizer import Channelizer
-from libsdr_tpu.ops.wideband_rx import WidebandFM
 from libsdr_tpu.ops.fixedpoint import (FMDemodInt, FMDeemphInt,
                                         IQBaseBandInt, fast_atan2_i16)
 from libsdr_tpu.ops.debug import BitDump, DebugStore, TextDump
@@ -32,10 +31,10 @@ from libsdr_tpu.ops.utils import AutoCast, Deinterleave
 
 __all__ = [
     "FSKDetector", "ASKDetector", "BitStream", "BPSK31", "BaseBand",
-    "fft", "FFTFilterBank", "Channelizer", "WidebandFM", "FMDemodInt",
+    "fft", "FFTFilterBank", "Channelizer", "FMDemodInt",
     "FMDeemphInt", "IQBaseBandInt", "fast_atan2_i16",
     "BitDump", "DebugStore", "TextDump", "AutoCast", "Deinterleave",
-    "firdesign", "FIRFilter", "set_mxu_precision", "fir_overlap_save", "FreqShift", "IQBaseBand",
+    "firdesign", "FIRFilter", "fir_overlap_save", "FreqShift", "IQBaseBand",
     "AMDemod", "USBDemod", "FMDemod", "FMDeemph", "iir_first_order",
     "SubSample", "FracSubSample", "InpolSubSampler", "AGC",
     "Scale", "Cast", "ToComplex", "RealPart", "ImagPart", "IQBalance",

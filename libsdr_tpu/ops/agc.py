@@ -12,7 +12,7 @@ multiply are elementwise.  This is numerically identical to the reference's
 float loop, not an approximation.
 
 The reference's per-dtype default targets (64 for 8-bit, 16000 for 16-bit,
-0.5 for float — src/utils.hh:668-687) collapse to 0.5 here because the TPU
+0.5 for float — src/utils.hh:668-687) collapse to 0.5 here because the device
 pipeline is float-normalized.
 """
 

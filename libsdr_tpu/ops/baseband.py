@@ -7,7 +7,7 @@ The reference computes, per input sample n (src/baseband.hh:198-223):
     shift[n] = filt[n] * exp(-i w n)             (w = 2 pi Fc / fs)
     out[j]   = mean(shift[j*D : (j+1)*D])        (averaging decimator)
 
-TPU-native fusion (exactly equal in exact arithmetic): commute the NCO in
+Fusion (exactly equal in exact arithmetic): commute the NCO in
 front of the filter with a phase-corrected kernel, and fold the boxcar
 average into the kernel —
 

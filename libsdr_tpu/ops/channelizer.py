@@ -6,12 +6,11 @@ standard maximally-decimated uniform PFB: one wideband complex stream in,
 M critically-sampled channel streams out, each at fs/M, centered at
 ch * fs / M.
 
-TPU mapping: the input is framed into (n_frames, M) by the commutator; the
-polyphase branch filters are a (P, M) tap matrix applied over P consecutive
-frames (an elementwise multiply-accumulate the XLA compiler vectorizes), and
-the channel synthesis is an M-point IFFT across branches — which is the
-planar matmul FFT of :mod:`libsdr_tpu.ops.fft`, i.e. one MXU matmul per
-block.  Everything batches over leading channel dims.
+Device mapping: the input is framed into (n_frames, M) by the commutator;
+the polyphase branch filters are a (P, M) tap matrix applied over P
+consecutive frames (an elementwise multiply-accumulate the XLA compiler
+fuses), and the channel synthesis is an M-point IFFT across branches —
+which is the planar matmul FFT of :mod:`libsdr_tpu.ops.fft`.  Everything batches over leading channel dims.
 
 Polyphase identity used (channel c = decimate(h * (x e^{-2i pi c n/M}))):
 
@@ -91,10 +90,8 @@ class Channelizer(Processor):
         # ENTIRELY into host-side constants: lane reversal q -> -q mod M
         # becomes column-reversed taps + a forward (instead of inverse) DFT,
         # and branch 0's one-frame shift becomes an extra tap row — so the
-        # device never reverses or re-stacks the stream (negative-step lane
-        # slices are relayout copies on TPU).
-        self._taps3_np = fold_commutator(proto, m, p)
-        self._taps = jnp.asarray(self._taps3_np)
+        # device never reverses or re-stacks the stream.
+        self._taps = jnp.asarray(fold_commutator(proto, m, p))
         return in_spec.with_(
             channels=in_spec.channels + (m,),
             plane_dtype=None,  # synthesis DFT accumulates in f32
@@ -108,15 +105,13 @@ class Channelizer(Processor):
         return cplx.zeros(shape, self.in_spec.real_dtype)
 
     def apply(self, carry, x):
-        # Dispatch policy (Pallas PFB kernel where shapes allow, the
-        # staged XLA body elsewhere) lives in ONE place, shared with the
-        # multi-chip shard_map bodies: parallel/wideband.channelize_local.
-        from libsdr_tpu.parallel.wideband import channelize_local
+        # One body, shared with the multi-chip shard_map bodies.
+        from libsdr_tpu.parallel.wideband import channelize_segment
 
         m, p = self.m, self.p
         lead = x.shape[:-1]
         t = x.shape[-1] // m
-        y = channelize_local(x, carry, self._taps3_np, self._taps, m, p)
+        y = channelize_segment(x, carry, self._taps, m, p)
         if t >= p:
             # Slice the 1-D stream, then reshape: slicing the (t, m)
             # reshape would materialize the whole reshaped block.

@@ -2,7 +2,7 @@
 (reference: src/demod.hh).
 
 All are elementwise or first-order ops, so XLA fuses them into the
-surrounding pipeline; none needs a Pallas kernel.
+surrounding pipeline; none needs a hand-written kernel.
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ class FMDeemph(Processor):
     The reference's integer update ``avg += (x - avg)/alpha`` with
     ``alpha = round(1/(1 - exp(-1/(fs*75e-6))))`` (src/demod.hh:304-306) is the
     Euler form of ``y[n] = (1-1/alpha) y[n-1] + (1/alpha) x[n]``; we run that
-    recurrence as an O(log B) associative scan on the VPU.
+    recurrence as an O(log B) associative scan.
 
     Args:
       tau: time constant in seconds (75e-6 for US/EU FM broadcast).

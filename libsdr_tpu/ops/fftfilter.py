@@ -10,7 +10,7 @@ band kernel, inverse-transforms, and overlap-adds the halves
 
 Here the whole bank is one Processor: the band dimension is a batch axis of
 the (planar, matmul-based) FFT, so one forward transform feeds an (n_bands,
-2B) spectrum multiply + one batched inverse transform — all MXU work.
+2B) spectrum multiply + one batched inverse transform — all matmul work.
 """
 
 from __future__ import annotations

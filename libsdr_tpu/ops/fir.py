@@ -1,11 +1,11 @@
-"""Streaming FIR filtering via overlap-save — the TPU-native replacement for
-the reference's per-sample ring-buffer FIR (reference: src/firfilter.hh:231-248).
+"""Streaming FIR filtering via overlap-save — the block-parallel replacement
+for the reference's per-sample ring-buffer FIR (reference: src/firfilter.hh:231-248).
 
 The reference keeps the last ``order`` samples in a ring buffer and computes an
 O(order) MAC per sample.  Here the ring buffer becomes an explicit
 ``tail`` carry of the last ``order-1`` input samples; each block is processed
 as one batched convolution ``y[n] = sum_i k[i] * xc[n+i]`` over
-``xc = concat(tail, x)`` — which XLA lowers onto the TPU MXU/VPU.  The initial
+``xc = concat(tail, x)`` — which XLA lowers to a GEMM or convolution.  The initial
 zero tail reproduces the reference's zero-initialized ring exactly
 (reference: src/firfilter.hh:194).
 
@@ -31,10 +31,13 @@ from libsdr_tpu.core.stream import ConfigError, StreamSpec
 from libsdr_tpu.ops import firdesign
 
 
-# Default conv precision is bf16 on TPU, far too lossy for DSP filters.
-# HIGH (3-pass bf16 emulation of f32, ~126 dB SNR) is ~1.7x faster than
-# HIGHEST (6-pass) on the v5e and well above every decode/SNR contract in
-# the reference; keep HIGHEST available for oracle work.
+# Precision of the FIR's dots.  On the GPU an f32 HIGH dot runs in TF32
+# (cuBLAS; a 512-deep random GEMM holds 70.6 dB against float64, HIGHEST
+# 127.9 dB).  The contract is >= 90 dB of FM audio against the float64
+# model (utils/model64.py), about the fidelity of 16-bit audio.  Measured on
+# an NVIDIA H100 80GB HBM3 at 700 W, fm_bank (64 ch x 2^24 samples,
+# chip_smoke.py): HIGH 108.4 dB at 15.2 ms per block, HIGHEST 127.1 dB at
+# 38.5 ms — HIGH is the cheaper one that holds the contract.
 CONV_PRECISION = jax.lax.Precision.HIGH
 
 
@@ -76,7 +79,7 @@ def _conv1d_multi(x2: jnp.ndarray, kmat: jnp.ndarray,
 def _conv1d(x, k, stride: int = 1):
     """Cross-correlation for any real/planar-complex combination of x and k.
 
-    The op is HBM-bandwidth-bound on TPU, so the planar re/im planes are
+    The op is memory-bandwidth-bound, so the planar re/im planes are
     NEVER stacked into one buffer (conv operands must be materialized — a
     stack would re-write the whole full-rate stream).  Each plane streams
     from HBM exactly once through its own conv; cross terms combine in the
@@ -98,10 +101,7 @@ def _conv1d(x, k, stride: int = 1):
         y = _conv1d_multi(x[..., None, :], kmat, stride)
         return Complex(y[..., 0, :], y[..., 1, :])
     # complex * complex: (re', im') = ((kr, -ki), (ki, kr)) . (re, im) as one
-    # 2->2-feature conv.  On this backend conv cost is ~independent of the
-    # feature count (lowering is per batch x spatial), so one 2-feature conv
-    # beats two 1-feature convs even though the stack is a real copy; the
-    # stack is elided entirely when the planes are adjacent slices of one
+    # 2->2-feature conv, which reads each plane once; the stack is elided entirely when the planes are adjacent slices of one
     # packed buffer (see cplx.Complex.packed / the runtime's packed ingest).
     kr = np.asarray(k.real, np.float32)
     ki = np.asarray(k.imag, np.float32)
@@ -113,13 +113,12 @@ def _conv1d(x, k, stride: int = 1):
 
 
 # --------------------------------------------------------------------------
-# MXU matmul FIR (block-Toeplitz): XLA lowers small-feature convs to VPU-rate
-# sliding windows (~1 GMAC/ms on the v5e), so the decimating FIR is instead
-# cast as ONE dense matmul per input plane over non-overlapping frames — a
-# reshape-only framing (no gather/stack/copy of the full-rate stream):
+# Matmul FIR (block-Toeplitz): the decimating FIR is cast as ONE dense
+# matmul per input plane over non-overlapping frames — a reshape-only
+# framing (no gather/stack/copy of the full-rate stream):
 #
 #   X = x.reshape(..., F, S*D)                     (free)
-#   P = X @ [A | C]                                (MXU)
+#   P = X @ [A | C]                                (GEMM)
 #   y[f, s] = P[f, s] + P[f+1, spill_s]            (decimated-rate epilogue)
 #
 # where A[m, s] = g[m - sD] (window of output s inside its frame) and the
@@ -183,7 +182,7 @@ def _fir_matmul_epilogue(p_main, p_spill, s_first: int):
 
 
 def _fir_matmul(x, k: np.ndarray, stride: int, s_out: int, offset: int = 0):
-    """Decimating FIR over frames via MXU matmul.  x trailing length must be
+    """Decimating FIR over frames via one matmul per plane.  x trailing length must be
     a multiple of S*stride; returns all F*S outputs, of which the final
     ``nsp`` (whose windows need the next block) are garbage — the caller
     keeps only the valid count."""
@@ -239,18 +238,6 @@ def fir_overlap_save(taps, x, tail, stride: int = 1, offset: int = 0):
     if t <= 1:
         return _conv1d(x[..., offset:], taps, stride), tail
     b = x.shape[-1] if not isinstance(x, Complex) else x.re.shape[-1]
-    # Exact-tiling Pallas kernel (wide complex banks, the standard
-    # offset=stride-1): consumes tail+block and emits exactly B/stride
-    # outputs — no lead/main/rest split, no output concat.
-    use_k, interp = kernel_dispatch()
-    if (use_k and stride > 1 and offset == stride - 1
-            and isinstance(x, Complex) and isinstance(tail, Complex)
-            and x.re.ndim == 2 and x.re.shape[0] >= 64):
-        from libsdr_tpu.ops import pallas_fir_mxu as pfm
-        if pfm.mxu_fir2_supported(t, stride, x.re.shape[0], b,
-                                  dtype=x.re.dtype):
-            y = pfm.fir_exact(x, taps, stride, tail, interpret=interp)
-            return y, x[..., b - (t - 1):]
     # Output j's window covers input samples [offset + j*stride - (t-1),
     # offset + j*stride] in tail-concatenated coordinates shifted by t-1:
     # global window start s(j) = offset + j*stride - (t-1) relative to x[0].
@@ -273,119 +260,16 @@ def fir_overlap_save(taps, x, tail, stride: int = 1, offset: int = 0):
     return y, new_tail
 
 
-# Kill switch for the Pallas MXU kernel backend (wide channel banks).
-USE_PALLAS_MXU = True
-
-# Kernel dispatch mode for the current trace context:
-#   'auto'      — Pallas kernels on real TPU backends (the default).
-#   'off'       — never emit a pallas_call.  REQUIRED for traces that XLA
-#                 GSPMD will partition over a >1-device mesh (a pallas_call
-#                 has no SPMD partitioning rule there: XLA would wrap it in
-#                 an all-gather, or fail to compile).  shard_map bodies are
-#                 NOT affected — inside shard_map operands are device-local,
-#                 so kernels stay on (that is the supported multi-chip path,
-#                 parallel/wideband.py).
-#   'interpret' — force kernel dispatch with interpret=True even off-TPU.
-#                 Lets multi-device CPU tests and the driver dryrun execute
-#                 the REAL shard_map+pallas program structure without chips.
-_KERNEL_MODE = "auto"
-
-
-class kernel_mode:
-    """Context manager overriding Pallas kernel dispatch while tracing.
-
-    The dispatch decision is made in Python at trace time, so wrapping the
-    traced call (not the jit construction) is what matters::
-
-        with kernel_mode('off'):
-            jax.jit(step)(carry, x)   # traces with kernels disabled
-    """
-
-    def __init__(self, mode: str):
-        if mode not in ("auto", "off", "interpret"):
-            raise ConfigError(f"kernel_mode: unknown mode {mode!r}")
-        self.mode = mode
-
-    def __enter__(self):
-        global _KERNEL_MODE
-        self._saved = _KERNEL_MODE
-        _KERNEL_MODE = self.mode
-        return self
-
-    def __exit__(self, *exc):
-        global _KERNEL_MODE
-        _KERNEL_MODE = self._saved
-        return False
-
-
-def kernel_dispatch():
-    """(use_kernels, interpret) for the current trace context.
-
-    Every Pallas dispatch gate funnels through this: the USE_PALLAS_MXU kill
-    switch, the kernel_mode override, and the backend check."""
-    if not USE_PALLAS_MXU or _KERNEL_MODE == "off":
-        return False, False
-    if _KERNEL_MODE == "interpret":
-        return True, True
-    return jax.default_backend() == "tpu", False
-
-
-def set_mxu_precision(mode: str) -> None:
-    """Select the Pallas MXU kernels' matmul precision.
-
-    'high' (default): manual 3-pass bf16 split == XLA HIGH (~1e-5 relative
-    — above every reference parity contract; the chain then runs
-    HBM/matmul-balanced at ~22-26 Gsps on the FM bank).
-    'fast': single-pass bf16 (~3e-3 relative per matmul).  On a real FM
-    signal the demodulated audio measures 93 dB SNR vs the 'high' chain
-    (bench.py fast-precision config, 64-ch WFM bank — angle discrimination
-    cancels most of the per-matmul error; the on-chip smoke gate asserts
-    >= 70 dB, tests/test_tpu_smoke.py).  Measured 2.2-2.6x: ~55 Gsps f32
-    planes, ~57 Gsps bf16 planes on the 64-channel FM bank.
-
-    Applies to subsequently compiled steps (precision is a static compile
-    parameter); already-compiled steps keep theirs.
-    """
-    from libsdr_tpu.ops import pallas_fir_mxu as pfm
-    try:
-        pfm._PRECISION = {"high": "x3", "fast": "x1"}[mode]
-    except KeyError:
-        raise ConfigError(f"set_mxu_precision: unknown mode {mode!r} "
-                          "(use 'high' or 'fast')") from None
-
-
-def _try_pallas_mxu(x, taps, stride: int, s0: int):
-    """The fused Pallas kernel (ops/pallas_fir_mxu) keeps the Toeplitz
-    product in VMEM — measured ~14 Gsps vs ~9 for the XLA matmul on wide
-    banks (>=64 channels: the kernel's channel tile is its MXU row count).
-    Returns (y_full, nsp) or None when not applicable."""
-    use_k, interp = kernel_dispatch()
-    if not use_k or not isinstance(x, Complex):
-        return None
-    if x.re.ndim != 2 or x.re.shape[0] < 64:
-        return None
-    taps_np = np.asarray(taps)
-    if not np.iscomplexobj(taps_np):
-        taps_np = taps_np.astype(np.complex128)
-    c, b = x.re.shape
-    from libsdr_tpu.ops import pallas_fir_mxu as pfm
-    if not pfm.mxu_fir_supported(taps_np.shape[0], stride, s0, c, b,
-                                 dtype=x.re.dtype):
-        return None
-    y, nsp = pfm.fir_mxu(x, taps_np, stride, s0, interpret=interp)
-    return y, nsp, pfm._S
-
-
 def _fir_main(x, taps, stride: int, s0: int):
     """In-block FIR outputs (window start s0 + j*stride, fully inside x).
 
-    Dispatches to the Pallas MXU kernel (wide channel banks) or the XLA
-    block-Toeplitz matmul when profitable (decimating filters on large
-    blocks — ~2x the conv path on the v5e); otherwise the XLA conv.  The
-    matmul paths read the whole unsliced block (the offset is baked into
-    the Toeplitz matrices) so no full-rate copy is ever made; the last few
+    Decimating filters on large blocks take the XLA block-Toeplitz matmul
+    (one dense product per input plane); others the XLA conv.  The matmul
+    path reads the whole unsliced block (the offset is baked into the
+    Toeplitz matrices) so no full-rate copy is ever made; the last few
     outputs whose windows spill past the final frame come from a small conv
-    on the block tail."""
+    on the block tail.  Which of the two is faster on the GPU is not
+    measured yet."""
     b = x.shape[-1] if not isinstance(x, Complex) else x.re.shape[-1]
     t = int(np.asarray(taps).shape[0])
     n_main = (b - s0 - t) // stride + 1
@@ -396,18 +280,6 @@ def _fir_main(x, taps, stride: int, s0: int):
     if not use_mm:
         return _conv1d(x[..., s0:], taps, stride)
     f_full = b // sd
-    pl = _try_pallas_mxu(x, taps, stride, s0)
-    if pl is not None:
-        y_mm, nsp, s_out_k = pl
-        # The kernel's frame size may differ from s_out; recompute counts.
-        f_full = b // (stride * s_out_k)
-        n_valid = min(f_full * s_out_k - nsp, n_main)
-        y_mm = y_mm[..., :n_valid]
-        if n_valid == n_main:
-            return y_mm
-        rem_start = s0 + n_valid * stride
-        y_rest = _conv1d(x[..., rem_start:], taps, stride)
-        return cplx.concatenate([y_mm, y_rest], axis=-1)
     y_mm, nsp = _fir_matmul(x, taps, stride, s_out, offset=s0)
     n_valid = min(f_full * s_out - nsp, n_main)
     y_mm = y_mm[..., :n_valid]
@@ -503,7 +375,7 @@ class FIRFilter(Processor):
         if np.iscomplexobj(self.taps) and not in_spec.is_complex:
             out_dtype = jnp.complex64
         # A narrow input plane dtype (bf16 ingest) does NOT propagate: the
-        # filter's MXU path accumulates in f32 and the output is normalized
+        # filter's matmul path accumulates in f32 and the output is normalized
         # to the full dtype (filtering gains precision beyond the source's).
         return in_spec.with_(
             dtype=out_dtype,

@@ -4,7 +4,7 @@ The reference computes in Q-format integers throughout (SURVEY.md section 7
 "hard parts": bit-exact POCSAG/AX.25 needs either int emulation or proof that
 the float pipeline crosses the same decision thresholds).  The float pipeline
 is the default; this module provides the integer kernels for parity gates —
-TPUs execute int32 on the VPU natively.
+int32 runs natively on the device.
 """
 
 from __future__ import annotations

@@ -6,10 +6,10 @@ rings ``markHist[i] = x[n] * markLUT[n mod L]`` and decides
 ``|sum(markHist)|^2 - |sum(spaceHist)|^2 > 0`` — an O(L) loop per sample
 (SURVEY.md 3.4 flags it as the hottest loop in the AX.25 chain).
 
-TPU-native formulation: the ring sum at sample n is a *sliding window sum*
+Block formulation: the ring sum at sample n is a *sliding window sum*
 of ``u[k] = x[k] * T[k mod L]`` over the last L samples, so the whole
 detector is one elementwise multiply by a tiled tone template plus a length-L
-boxcar convolution per tone — O(1) per sample on the VPU/MXU instead of O(L).
+boxcar convolution per tone — O(1) per sample instead of O(L).
 The template phase is tied to the absolute sample index mod L (carry), which
 reproduces the reference's ring indexing exactly, including the phase jump
 where the tone template wraps (src/fsk.cc:40-49).
@@ -36,8 +36,8 @@ def _window_mat(L: int) -> np.ndarray:
     with ``w`` one row of stacked frames [G[f] .. G[f+npv]] (current frame
     LAST), ``w @ M`` gives s[o] = sum of the L samples ending at the
     current frame's offset o.  A length-L boxcar conv computes the same
-    sums, but XLA lowers small-feature convs to VPU rate on TPU (and they
-    are slow on CPU); the banded matmul runs on the MXU / GEMM."""
+    sums, but small-feature convs are slow on the CPU; the banded matmul is
+    one GEMM."""
     npv = -(-(L - 1) // _S)
     rows = (npv + 1) * _S
     m = np.zeros((rows, _S), np.float32)
@@ -52,14 +52,14 @@ def sliding_sum(tail: Complex, u: Complex, L: int):
     sample of ``u`` (the FSK correlator's ring sum, src/fsk.cc:68-87).
     Returns (sums (..., B) Complex, new_tail (..., L-1) Complex).
 
-    128-aligned blocks take the banded matmul (one MXU/GEMM pass over
+    128-aligned blocks take the banded matmul (one GEMM pass over
     S-sample frames with ceil((L-1)/S) frames of context); others fall
-    back to the length-L boxcar conv (slow-on-TPU VPU path)."""
+    back to the length-L boxcar conv."""
     import jax
 
     b = u.shape[-1]
     if b % _S == 0:
-        from libsdr_tpu.ops.pallas_fir_mxu import to_device_cached
+        from libsdr_tpu.ops.utils import to_device_cached
         mat = to_device_cached(_WMAT_CACHE, L, lambda: _window_mat(L))
         npv = -(-(L - 1) // _S)
         f = b // _S
@@ -119,8 +119,7 @@ class FSKDetector(Processor):
         # (reference: src/fsk.cc:39-49; positive exponent), pre-tiled to
         # block + L so the per-block template T[(n0 + j) mod L] is ONE
         # dynamic lane slice at the carried phase n0 — not a (B,)-index
-        # gather from an (L,) table, which lowers to a slow scatter/gather
-        # loop on the TPU VPU.
+        # gather from an (L,) table.
         mark = np.exp(2j * np.pi * self.f_mark * i / fs)
         space = np.exp(2j * np.pi * self.f_space * i / fs)
         reps = -(-(b + L) // L)

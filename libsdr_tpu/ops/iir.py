@@ -1,4 +1,4 @@
-"""IIR filtering on TPU — frame matmuls on the MXU, scans as fallback.
+"""IIR filtering — frame matmuls, scans as fallback.
 
 The reference's only IIR filters are first-order exponential averages — the
 FM de-emphasis (reference: src/demod.hh:342-351) and the AGC envelope
@@ -13,7 +13,7 @@ coefficient the recurrence is instead solved in closed form per frame of S
 samples with ONE matmul against the lower-triangular impulse-response
 matrix L[m, s] = a^(s-m):
 
-    p[f, :]  = (b*x)[f, :] @ L            (MXU, one pass over the data)
+    p[f, :]  = (b*x)[f, :] @ L            (GEMM, one pass over the data)
     Y[f]     = a^S * Y[f-1] + p[f, S-1]   (tiny scan over B/S frame carries)
     y[f, s]  = p[f, s] + a^(s+1) * Y[f-1] (fused elementwise epilogue)
 
@@ -29,7 +29,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-_FRAME = 128  # MXU-native tile
+_FRAME = 128  # frame length S
 
 
 def _iir_scan(x: jnp.ndarray, a, b, y0) -> Tuple[jnp.ndarray, jnp.ndarray]:

@@ -1,4 +1,4 @@
-"""NCO frequency shift — the TPU-native replacement for the reference's
+"""NCO frequency shift — the array-native replacement for the reference's
 integer LUT mixer (reference: src/freqshift.hh FreqShiftBase).
 
 Two modes:

@@ -113,12 +113,12 @@ class BPSK31(Processor):
             # a roll of the TAPS by the scalar ring index instead of a
             # per-step gather of the window: sum_j win[j]*taps[j] ==
             # sum_k dl[k]*taps[(k - dl_idx) % 8].  A scalar-shift roll
-            # lowers to two dynamic slices; the old (..., order) gather
-            # lowered to a scalar gather loop on the TPU VPU.
+            # lowers to two dynamic slices instead of an (..., order)
+            # gather.
             row = jnp.clip(jnp.round(mu * NSTEPS), 0, NSTEPS).astype(jnp.int32)
             # Per-channel interpolation taps via one-hot matmul rather
             # than a row gather from the (129, 8) bank — exact (one 1.0
-            # per row) and MXU/VPU-friendly inside the scan body.
+            # per row) and gather-free inside the scan body.
             taps = jax.nn.one_hot(row, NSTEPS + 1, dtype=bank.dtype) @ bank
             taps = jnp.roll(taps, dl_idx, axis=-1)
             y = Complex((dl.re * taps).sum(-1), (dl.im * taps).sum(-1))

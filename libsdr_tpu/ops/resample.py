@@ -1,7 +1,7 @@
 """Rate conversion: integer averaging decimator, fractional decimator, and a
 polyphase-interpolating rational resampler (reference: src/subsample.hh).
 
-The rational resampler exploits a TPU-friendly property: with a rational rate
+The rational resampler exploits an accelerator-friendly property: with a rational rate
 ratio p/q and a block size satisfying ``block*q % p == 0``, the number of
 outputs per block AND every (input-index, fractional-phase) pair are
 compile-time constants.  The whole resampler becomes one static gather of

@@ -62,3 +62,86 @@ def fsk_modulate(fs: float, bits: np.ndarray, baud: float, f_mark: float,
     freqs = np.where(np.asarray(bits)[idx] > 0, f_mark, f_space)
     phase = 2 * np.pi * np.cumsum(freqs) / fs
     return np.exp(1j * phase).astype(dtype)
+
+
+def nrzi(bits: np.ndarray) -> np.ndarray:
+    """NRZI line coding as AX.25 sends it: a 0 bit toggles the line."""
+    return (np.cumsum(np.asarray(bits) == 0) & 1).astype(np.uint8)
+
+
+def pocsag_iq(fs: float, text: str, address: int, carrier: float = 0.0,
+              n: int = None, start: int = 0,
+              deviation: float = 4500.0) -> np.ndarray:
+    """A POCSAG page as FM IQ at rate ``fs``: 1200 baud NRZ, mark = -
+    ``deviation`` (the reference's POCSAG FSK sense).  ``n`` samples in all
+    (default: just the page), the page starting at sample ``start`` on an
+    unmodulated ``carrier``."""
+    from libsdr_tpu.decode import pocsag_encode_batch
+
+    bits = pocsag_encode_batch(address=address, function=1, text=text)
+    spb = fs / 1200.0
+    n_page = int(len(bits) * spb)
+    n = n_page + start if n is None else int(n)
+    k = np.arange(n) - start
+    idx = np.clip((k / spb).astype(np.int64), 0, len(bits) - 1)
+    audio = np.where(bits[idx] > 0, -1.0, 1.0)
+    audio[(k < 0) | (k >= n_page)] = 0.0
+    return fm_modulate(fs, audio, deviation, carrier)
+
+
+# Canonical per-mode payloads of :func:`mixed_band`.
+MIXED_BAND_PAYLOADS = {
+    "pocsag": ("MIXED BAND", 99),
+    "ax25": ("K3MM", "APRS", b"!4903.50N/07201.75W-multimode"),
+    "rtty": "RY MULTI",
+    "psk31": "cq sdr",
+}
+
+
+def mixed_band(active: "dict[int, str]", m: int,
+               ch_bw: float = 24_000.0) -> np.ndarray:
+    """Synthesize a wideband capture (rate ``m * ch_bw``) with the
+    canonical signal of each mode (:data:`MIXED_BAND_PAYLOADS`) on the
+    given {channel: mode} slots: each narrowband signal is made at
+    ``ch_bw``, held up to the wideband rate and shifted to its channel
+    center."""
+    from libsdr_tpu.decode import (ax25_frame_bits, baudot_encode_bits,
+                                   varicode_encode_bits)
+
+    fs = m * ch_bw
+
+    def narrow_for(mode):
+        p = MIXED_BAND_PAYLOADS[mode]
+        if mode == "pocsag":
+            return pocsag_iq(ch_bw, text=p[0], address=p[1])
+        if mode == "ax25":
+            frame = ax25_frame_bits(*p, n_flags=50)
+            afsk_audio = fsk_modulate(ch_bw, nrzi(frame), 1200.0 * 1.0017,
+                                      1200.0, 2200.0).real
+            return fm_modulate(ch_bw, 0.8 * afsk_audio, deviation=3000.0)
+        if mode == "rtty":
+            half_bits = baudot_encode_bits(p, stop_bits="1.5")
+            return fsk_modulate(ch_bw, half_bits, 2 * 45.45, 930.0, 1100.0)
+        if mode != "psk31":
+            raise ValueError(f"mixed_band: unknown mode {mode!r}")
+        vbits = np.concatenate([np.ones(24, np.uint8),
+                                varicode_encode_bits(p),
+                                np.ones(24, np.uint8)])
+        spb = int(round(ch_bw / 31.25))
+        phases = np.pi * np.cumsum(vbits == 0)
+        return np.exp(1j * np.repeat(phases, spb)).astype(np.complex64)
+
+    narrows = {ch: narrow_for(mode) for ch, mode in active.items()}
+    n = int(fs * (max(len(s) for s in narrows.values()) / ch_bw + 0.3))
+    t = np.arange(n) / fs
+    hold = (np.arange(n) / m).astype(np.int64)
+    wide = np.zeros(n, np.complex64)
+    for ch, narrow in narrows.items():
+        idx = np.minimum(hold, len(narrow) - 1)
+        pad = np.asarray(narrow, np.complex64)[idx]
+        # silence past the end of the source signal
+        pad[idx >= len(narrow) - 1] = 0
+        f_c = ch * fs / m if ch <= m // 2 else ch * fs / m - fs
+        wide += (0.5 * pad * np.exp(2j * np.pi * f_c * t)
+                 ).astype(np.complex64)
+    return wide

@@ -2,7 +2,7 @@
 (reference: src/utils.hh Scale/Cast/ToComplex/RealPart/ImagPart/
 UnsignedToSigned/SignedToUnsigned/IQBalance/Interleave and src/autocast.hh).
 
-The TPU pipeline computes in float32/complex64, so most of the reference's
+The device pipeline computes in float32/complex64, so most of the reference's
 fixed-point cast zoo collapses into :class:`Cast` + :class:`Normalize`.
 """
 
@@ -34,7 +34,7 @@ class Cast(Processor):
     """Convert dtype (reference: src/utils.hh Cast / src/autocast.hh AutoCast).
 
     Integer->float casts optionally normalize to [-1, 1) full scale
-    (the TPU-native replacement for the reference's fixed-point Traits
+    (the float replacement for the reference's fixed-point Traits
     scale/shift machinery, src/traits.hh)."""
 
     def __init__(self, dtype, normalize: bool = False):
@@ -64,15 +64,13 @@ class AutoCast(Cast):
     """Runtime dtype normalization to the compute format (reference:
     src/autocast.hh AutoCast<T>, the table of 14 cast kernels): any integer
     or float stream becomes normalized float32 (or complex64 for complex
-    streams), which is what every downstream TPU op consumes.
+    streams), which is what every downstream device op consumes.
 
     Args:
       compute: plane dtype, 'float32' (default) or 'bfloat16'.  bf16 planes
-        HALVE the HBM traffic of the (bandwidth-bound) front end and are
-        LOSSLESS for 8-bit sources (rtl_sdr u8 wire format: 8 significand
-        bits fit bf16 exactly); the MXU consumes them natively and
-        accumulates in f32 (measured: +11% on the FM bank, 119 dB agreement
-        with the f32 path on u8 input).  Use float32 for >=12-bit sources.
+        HALVE the device-memory traffic of the (bandwidth-bound) front
+        end and are LOSSLESS for 8-bit sources (rtl_sdr u8 wire format: 8
+        significand bits fit bf16 exactly); the filters accumulate in f32.  Use float32 for >=12-bit sources.
     """
 
     def __init__(self, compute: str = "float32"):
@@ -234,3 +232,26 @@ class Deinterleave(Processor):
             y = a.reshape(a.shape[:-1] + (-1, self.n))
             return jnp.swapaxes(y, -1, -2)
         return carry, x.map(go) if cplx.is_complex(x) else go(x)
+
+
+def to_device_cached(cache: dict, key, build_np, cap: int = 64):
+    """Device-resident constant pytree, cached ACROSS traces.
+
+    ``build_np()`` produces the numpy value on a miss; the device upload
+    runs under :func:`jax.ensure_compile_time_eval`, so even when first
+    touched inside a jit/shard_map trace it evaluates eagerly to a plain
+    committed array (safe to reuse by any later trace, where it folds as a
+    compile-time constant).  Keyed additionally by backend so the CPU and
+    an accelerator never share buffers.  Saves rebuilding and re-uploading
+    the constant on every eager call."""
+    import jax
+
+    key = (key, jax.default_backend())
+    m = cache.get(key)
+    if m is None:
+        with jax.ensure_compile_time_eval():
+            m = jax.tree_util.tree_map(jnp.asarray, build_np())
+        if len(cache) > cap:
+            cache.clear()
+        cache[key] = m
+    return m

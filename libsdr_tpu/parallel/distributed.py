@@ -1,9 +1,9 @@
 """Multi-host (DCN) initialization hooks.
 
 The reference is strictly single-process (SURVEY.md section 2.9).  For
-multi-host TPU slices the recipe is standard JAX: ``jax.distributed`` +
-a global mesh; channel shards ride DCN between hosts while halos stay on
-ICI within a slice.  Actual multi-host hardware is not available in this
+multi-host deployments the recipe is standard JAX: ``jax.distributed`` +
+a global mesh; channel shards cross the network between hosts while halos
+stay on the intra-host interconnect.  Actual multi-host hardware is not available in this
 environment, so this module provides the initialization path and documents
 the deployment contract; the sharded pipelines in
 :mod:`libsdr_tpu.parallel` are host-count agnostic.
@@ -23,8 +23,8 @@ def init_multihost(coordinator: Optional[str] = None,
                    process_id: Optional[int] = None) -> None:
     """Initialize jax.distributed (no-op for single-process runs).
 
-    On GKE/GCE TPU pods the arguments come from the environment and may all
-    be omitted (jax auto-detects); pass them explicitly elsewhere.
+    Where a cluster environment describes the job, the arguments may be
+    omitted (jax auto-detects); pass them explicitly elsewhere.
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(coordinator_address=coordinator,
@@ -37,7 +37,7 @@ def global_mesh(axis_names: Sequence[str] = ("ch", "time"),
     """Mesh over ALL devices (across hosts after init_multihost): channels
     on the first axis (DCN-friendly — no per-block communication between
     channel shards), time-block parallelism on the second (halos should stay
-    within a host's ICI domain, so keep ``time_parallel`` <= devices/host)."""
+    within a host's interconnect domain, so keep ``time_parallel`` <= devices/host)."""
     devs = np.asarray(jax.devices())
     n = devs.size
     t = max(1, time_parallel)

@@ -5,7 +5,7 @@ ring buffers, src/firfilter.hh:264-267; FFT overlap-add carries,
 src/filternode.hh:163-181).  When the time axis is sharded over a mesh, that
 carried state becomes a *halo*: shard i needs the last ``T-1`` samples of
 shard i-1.  These helpers run inside ``shard_map`` and move halos with
-``jax.lax.ppermute`` over the ICI (SURVEY.md sections 2.9, 5).
+``jax.lax.ppermute`` over the interconnect (SURVEY.md sections 2.9, 5).
 
 All helpers accept planar-complex pytrees (tree-mapped collectives).
 """

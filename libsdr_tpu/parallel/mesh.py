@@ -5,7 +5,7 @@ another.
 Design (the "How to Scale Your Model" recipe): annotate the input block with a
 NamedSharding, replicate or channel-shard the carries, and let XLA GSPMD
 propagate shardings and insert the collectives (halo exchanges for the
-overlap-save convolutions ride the ICI as collective-permutes).
+overlap-save convolutions become collective-permutes).
 """
 
 from __future__ import annotations
@@ -73,15 +73,15 @@ def shard_pipeline_step(pipeline: Pipeline, mesh: Mesh,
 
     # GSPMD partitions this trace over the mesh.  A pallas_call has no SPMD
     # partitioning rule: on a >1-device mesh XLA would wrap it in an
-    # all-gather (or fail to compile), so kernel dispatch is forced off for
-    # this trace — every kernel site has an equivalent XLA fallback that
-    # GSPMD shards cleanly.  (Kernels on multi-chip meshes run via
-    # shard_map with device-local operands instead: parallel/wideband.py.)
+    # all-gather (or fail to compile), so the bit-sync PLL kernel is kept
+    # out of this trace — its scan shards cleanly.  (On multi-device meshes
+    # the kernel runs via shard_map with device-local operands instead:
+    # shard_map_pipeline_step below, parallel/wideband.py.)
     n_dev = int(mesh.devices.size)
 
     def step_fn(carry, x):
         if n_dev > 1:
-            from libsdr_tpu.ops.fir import kernel_mode
+            from libsdr_tpu.ops.bitsync import kernel_mode
             with kernel_mode("off"):
                 return pipeline.apply(carry, x)
         return pipeline.apply(carry, x)
@@ -93,12 +93,12 @@ def shard_pipeline_step(pipeline: Pipeline, mesh: Mesh,
 def shard_map_pipeline_step(pipeline: Pipeline, mesh: Mesh,
                             axis: str = "ch"):
     """Channel-sharded shard_map variant of :func:`shard_pipeline_step`
-    that KEEPS the Pallas kernels.
+    that KEEPS the bit-sync PLL kernel.
 
     Each device runs the pipeline's step on its own channel group with
     device-local operands — the only sharding under which a ``pallas_call``
-    is legal — so the fused FM/AM/USB/AFSK kernels dispatch per shard
-    instead of being forced off like the GSPMD path above.  Valid for
+    is legal — so the kernel dispatches per shard instead of being kept
+    out like in the GSPMD path above.  Valid for
     CHANNELWISE pipelines (every stage maps channels independently: the
     demod-bank chains; NOT Channelizer/Combine, whose cross-channel data
     flow needs the explicit builders in parallel/wideband.py): the body
@@ -106,8 +106,8 @@ def shard_map_pipeline_step(pipeline: Pipeline, mesh: Mesh,
     replicated per channel group.
 
     The pipeline stays bound to the GLOBAL channel count (taps and other
-    baked constants are channel-independent for channelwise stages; kernel
-    shape gates see the LOCAL operand shapes at trace time).  Returns
+    baked constants are channel-independent for channelwise stages; the
+    kernel sees the LOCAL operand shapes at trace time).  Returns
     (step, place_input, carry) like :func:`shard_pipeline_step`.
     """
     in_spec = pipeline.in_spec

@@ -13,7 +13,7 @@ parallel/wideband.py:
    (the mode chains need it: USB for RTTY, PSK31's own baseband select).
 2. **Reshard**: one all_to_all turns (M channels, t/n local time) into
    (M/n local channels, t full time) — the complex channel bank crosses
-   the ICI once.
+   the interconnect once.
 3. **Per-mode decode, channel-sharded**: each device owns M/n channels
    over the full block and runs ALL four mode chains on its local channel
    groups.  For this to be one SPMD program, the channel->mode assignment
@@ -42,7 +42,7 @@ from libsdr_tpu.core import cplx
 from libsdr_tpu.core.ragged import Ragged, compact_windows, min_valid_gap, \
     pick_window
 from libsdr_tpu.parallel.halo import _tree_where, last_shard_tail, pass_right
-from libsdr_tpu.parallel.wideband import _taps, _validate, channelize_local
+from libsdr_tpu.parallel.wideband import _taps, _validate, channelize_segment
 
 
 def build_multimode_step(mesh: Mesh, n_channels: int, block: int,
@@ -65,8 +65,9 @@ def build_multimode_step(mesh: Mesh, n_channels: int, block: int,
 
     ``plane_dtype``: input plane dtype (e.g. ``jnp.bfloat16`` for blocks
     straight off the u8 wire via io.ingest.stream_raw_iq_bf16 — lossless
-    for 8-bit sources, halves ingest+HBM traffic; the PFB kernel consumes
-    bf16 planes directly and the mode chains see the f32 channel bank).
+    for 8-bit sources, halves ingest and device-memory traffic; the
+    channelizer consumes bf16 planes directly and the mode chains see the
+    f32 channel bank).
     """
     from libsdr_tpu import Pipeline, StreamSpec
     from libsdr_tpu.apps.multimode import _mode_stages
@@ -76,7 +77,7 @@ def build_multimode_step(mesh: Mesh, n_channels: int, block: int,
     n = int(mesh.devices.size)
     m, p = int(n_channels), int(taps_per_branch)
     _validate(block, m, n, p)
-    taps_np, taps = _taps(m, p)
+    taps = _taps(m, p)
     t_full = block // m
     ch_rate = fs_hz / m
     g = m // n                        # channels per device after reshard
@@ -115,8 +116,8 @@ def build_multimode_step(mesh: Mesh, n_channels: int, block: int,
     def step_local(carry, x_local):
         hist_g, carries = carry
         t_loc = x_local.shape[-1] // m
-        # Slice the 1-D stream first (reshape-then-slice materializes the
-        # whole block on this backend).
+        # Slice the 1-D stream first (reshape-then-slice would materialize
+        # the whole block).
         tail = x_local[..., (t_loc - p) * m:].reshape((p, m))
         if n == 1:
             hist = hist_g
@@ -126,16 +127,14 @@ def build_multimode_step(mesh: Mesh, n_channels: int, block: int,
             halo = pass_right(tail, axis)
             hist = _tree_where(idx == 0, hist_g, halo)
             new_hist = last_shard_tail(tail, axis)
-        # Same per-device fast path as the single-chip Channelizer: the
-        # fused Pallas PFB kernel where shapes allow, XLA fallback else.
-        y = channelize_local(x_local, hist, taps_np, taps, m, p)  # (M, t_loc)
+        y = channelize_segment(x_local, hist, taps, m, p)  # (M, t_loc)
         if n > 1:
             # (M, t/n) time-sharded -> (M/n, t_full) channel-sharded: the
-            # complex bank rides the ICI once.
+            # complex bank crosses the interconnect once.
             y = y.map(lambda a: jax.lax.all_to_all(
                 a, axis, split_axis=0, concat_axis=1, tiled=True))
-        # Per-mode chains with all BitStream PLLs merged into ONE banked
-        # Pallas launch per device (ops/bitsync.apply_mode_chains).
+        # Per-mode chains with all BitStream PLLs merged into ONE PLL
+        # per device (ops/bitsync.apply_mode_chains).
         from libsdr_tpu.ops.bitsync import apply_mode_chains
         outs, new_c = apply_mode_chains(sub_l, carries, y, loc_groups,
                                         windows)

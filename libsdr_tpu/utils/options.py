@@ -11,8 +11,21 @@ from __future__ import annotations
 import argparse
 
 
+class _AppParser(argparse.ArgumentParser):
+    """Parser of an app's ``main``: parsing the command line also turns on
+    the persistent compile cache (utils/compile_cache.py), so every app
+    starts the same way."""
+
+    def parse_args(self, args=None, namespace=None):
+        from libsdr_tpu.utils.compile_cache import enable_compile_cache
+
+        parsed = super().parse_args(args, namespace)
+        enable_compile_cache()
+        return parsed
+
+
 def common_parser(description: str) -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=description)
+    p = _AppParser(description=description)
     p.add_argument("--block-size", type=int, default=1 << 16,
                    help="samples per processing block")
     p.add_argument("--log-level", default="WARNING",
@@ -22,8 +35,8 @@ def common_parser(description: str) -> argparse.ArgumentParser:
 
 def add_source_args(p: argparse.ArgumentParser) -> None:
     """Input source flags (the reference offers rtl/audio/file sources,
-    e.g. examples/sdr_pocsag.cc:44-60; TPU hosts have no RTL dongle or sound
-    card, so file/raw inputs replace them)."""
+    e.g. examples/sdr_pocsag.cc:44-60; accelerator servers have no RTL dongle or
+    sound card, so file/raw inputs replace them)."""
     g = p.add_argument_group("source")
     g.add_argument("--file", help="input WAV file (stereo = I/Q)")
     g.add_argument("--raw", help="raw interleaved IQ capture file")

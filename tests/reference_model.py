@@ -1,7 +1,7 @@
 """Per-sample numpy simulators of the reference algorithms, used as golden
 oracles.  These re-state the reference's *math* (with file:line citations) in
 plain numpy — sample-by-sample, exactly as the C++ loops do in float — so the
-block-streaming TPU ops can be tested for equivalence without compiling the
+block-streaming device ops can be tested for equivalence without compiling the
 reference.
 """
 

@@ -17,12 +17,7 @@ from libsdr_tpu.ops import siggen
 def _nrzi(bits):
     """NRZI encode: bit 0 -> transition, bit 1 -> hold (AX.25 convention,
     reference: src/fsk.hh:127-131 TRANSITION mode)."""
-    line, cur = [], 0
-    for b in np.asarray(bits):
-        if b == 0:
-            cur ^= 1
-        line.append(cur)
-    return np.asarray(line, np.uint8)
+    return siggen.nrzi(bits)
 
 
 def test_fm_rx_cli(tmp_path):
@@ -80,14 +75,8 @@ def test_wavplay_cli(tmp_path):
     np.testing.assert_allclose(got[:fs], 0.5 * audio, atol=2e-3)
 
 
-def _pocsag_iq(fs, text="TPU PAGER", address=4242):
-    bits = pocsag_encode_batch(address=address, function=1, text=text)
-    spb = fs / 1200.0
-    n = int(len(bits) * spb)
-    idx = np.minimum((np.arange(n) / spb).astype(np.int64), len(bits) - 1)
-    dev = np.where(bits[idx] > 0, -4500.0, 4500.0)
-    ph = 2 * np.pi * np.cumsum(dev) / fs
-    return np.exp(1j * ph).astype(np.complex64)
+def _pocsag_iq(fs, text="SDR PAGER", address=4242):
+    return siggen.pocsag_iq(fs, text, address)
 
 
 def test_pocsag_rx_cli(tmp_path):
@@ -98,14 +87,14 @@ def test_pocsag_rx_cli(tmp_path):
     write_wav_iq(str(cap), 0.9 * iq, fs)
     msgs = pocsag_rx.main(["--file", str(cap), "--block-size", "24000"])
     assert msgs and msgs[0].address == 4242
-    assert msgs[0].as_text().startswith("TPU PAGER")
+    assert msgs[0].as_text().startswith("SDR PAGER")
 
 
 def test_ax25_rx_cli(tmp_path):
     from libsdr_tpu.apps import ax25_rx
     fs = 24_000
     frame_bits = ax25_frame_bits(
-        "N0CALL", "APRS", b"!4903.50N/07201.75W-TPU", n_flags=50)
+        "N0CALL", "APRS", b"!4903.50N/07201.75W-SDR", n_flags=50)
     line = _nrzi(frame_bits)
     # 0.17% TX clock offset: a perfectly synchronous synthetic signal parks
     # the reference PLL at its metastable point (transitions exactly at the
@@ -265,7 +254,7 @@ def test_psk31_rx_cli(tmp_path):
     from libsdr_tpu.apps import psk31_rx
     from libsdr_tpu.decode import varicode_encode_bits
     fs, spb = 2000, 64
-    text = "cq de tpu"
+    text = "cq de sdr"
     bits = varicode_encode_bits(text)
     bits = np.concatenate([np.ones(16, np.uint8), bits, np.ones(16, np.uint8)])
     ph = 0.0
@@ -343,58 +332,9 @@ def test_scanner_bf16_wire(tmp_path):
 
 def make_mixed_band(active: "dict[int, str]", m: int,
                     ch_bw: float = 24_000.0) -> np.ndarray:
-    """TX-synthesize a wideband capture with canonical per-mode signals on
-    the given {channel: mode} slots (pocsag "MIXED BAND"@99, ax25 K3MM
-    position report, rtty "RY MULTI", psk31 "cq tpu") — shared by the
+    """The canonical mixed band (ops/siggen.mixed_band) — shared by the
     single-chip and sharded multimode bank tests."""
-    from libsdr_tpu.apps.tx import _nrzi
-    from libsdr_tpu.decode import (ax25_frame_bits, baudot_encode_bits,
-                                   varicode_encode_bits)
-
-    fs = m * ch_bw
-
-    def narrow_for(mode):
-        if mode == "pocsag":
-            return _pocsag_iq(ch_bw, text="MIXED BAND", address=99)
-        if mode == "ax25":
-            frame = ax25_frame_bits("K3MM", "APRS",
-                                    b"!4903.50N/07201.75W-multimode",
-                                    n_flags=50)
-            afsk_audio = siggen.fsk_modulate(ch_bw, _nrzi(frame),
-                                             1200.0 * 1.0017,
-                                             1200.0, 2200.0).real
-            return siggen.fm_modulate(ch_bw, 0.8 * afsk_audio,
-                                      deviation=3000.0)
-        if mode == "rtty":
-            half_bits = baudot_encode_bits("RY MULTI", stop_bits="1.5")
-            return siggen.fsk_modulate(ch_bw, half_bits, 2 * 45.45,
-                                       930.0, 1100.0)
-        assert mode == "psk31"
-        vbits = np.concatenate([np.ones(24, np.uint8),
-                                varicode_encode_bits("cq tpu"),
-                                np.ones(24, np.uint8)])
-        spb = int(round(ch_bw / 31.25))
-        ph, phases = 0.0, []
-        for b in vbits:
-            if b == 0:
-                ph += np.pi
-            phases.append(ph)
-        return np.exp(1j * np.repeat(phases, spb)).astype(np.complex64)
-
-    narrows = {ch: narrow_for(mode) for ch, mode in active.items()}
-    n = int(fs * (max(len(s) for s in narrows.values()) / ch_bw + 0.3))
-    t = np.arange(n) / fs
-    wide = np.zeros(n, np.complex64)
-    for ch, narrow in narrows.items():
-        idx = np.minimum((np.arange(n) / m).astype(np.int64),
-                         len(narrow) - 1)
-        pad = np.asarray(narrow, np.complex64)[idx]
-        # silence past the end of the source signal
-        pad[idx >= len(narrow) - 1] = 0
-        f_c = ch * fs / m if ch <= m // 2 else ch * fs / m - fs
-        wide += (0.5 * pad * np.exp(2j * np.pi * f_c * t)
-                 ).astype(np.complex64)
-    return wide
+    return siggen.mixed_band(active, m, ch_bw)
 
 
 def test_multimode_bank(tmp_path):
@@ -419,7 +359,7 @@ def test_multimode_bank(tmp_path):
     assert 5 in found and found[5][0] == "rtty"
     assert "MULTI" in found[5][1]
     assert 6 in found and found[6][0] == "psk31"
-    assert "cq tpu" in found[6][1]
+    assert "cq sdr" in found[6][1]
 
 
 def test_multimode_psk31_nonstandard_channel_rate():
@@ -435,7 +375,7 @@ def test_multimode_psk31_nonstandard_channel_rate():
     assert multimode._t_quantum(fs, m, ["pocsag", "rtty"]) == 1
     wide = make_mixed_band({3: "psk31"}, m, ch_bw=ch_bw)
     found = multimode.scan_multimode(wide, fs, m, {3: "psk31"})
-    assert 3 in found and "cq tpu" in found[3][1]
+    assert 3 in found and "cq sdr" in found[3][1]
 
 
 def test_scanner_and_multimode_empty_capture():
@@ -547,35 +487,3 @@ def test_rx_cli_live_mode_switch(tmp_path):
 
     assert abs(peak(audio[half // 4: half]) - 800.0) < 10
     assert abs(peak(audio[half + half // 4:]) - 1100.0) < 10
-
-
-def test_tpu_check_smoke_parser():
-    """tools/tpu_check.py's SMOKE artifact parser: pass/fail counts, the
-    '[smoke] name=value' measured bounds, and retiling ulp lines."""
-    import importlib.util
-    import os
-    spec = importlib.util.spec_from_file_location(
-        "tpu_check", os.path.join(os.path.dirname(__file__), "..",
-                                  "tools", "tpu_check.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    text = "\n".join([
-        "[smoke] fused_vs_unfused_fm_snr_db=132.4",
-        "[smoke] fast_precision_snr_db=93.1",
-        "fm full-block vs shard-sized half blocks: "
-        "bit-identical=False, worst=2.31 ulp",
-        "pfb full vs halves: bit-identical=True, worst=0.00 ulp",
-        "17 passed, 1 skipped in 402.11s",
-    ])
-    out = mod.parse_smoke_output(text, 0, 402.6)
-    assert out["passed"] == 17 and out["skipped"] == 1
-    assert out["pytest_exit"] == 0 and out["wall_s"] == 402.6
-    assert out["fused_vs_unfused_fm_snr_db"] == 132.4
-    assert out["fast_precision_snr_db"] == 93.1
-    b = out["retiling_ulp_bounds"]
-    assert b["fm_full_block_vs_shard_sized_half_blocks"] == {
-        "bit_identical": False, "worst_ulp": 2.31}
-    assert b["pfb_full_vs_halves"]["bit_identical"] is True
-    # a failing run parses too
-    out2 = mod.parse_smoke_output("2 failed, 15 passed in 10s", 1, 10.0)
-    assert out2["failed"] == 2 and out2["passed"] == 15

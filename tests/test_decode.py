@@ -285,7 +285,7 @@ def test_fsk_detector_and_bitstream(rng):
 
 
 def test_fsk_detector_matmul_path_matches_conv(rng):
-    """128-aligned blocks take the banded-matmul sliding sum (MXU/GEMM,
+    """128-aligned blocks take the banded-matmul sliding sum (GEMM,
     ops/fsk.py::_window_mat); unaligned blocks take the boxcar conv.  Both
     compute the same L-term direct sums in float32, so symbols agree except
     at near-zero discriminator ties (different accumulation order), and the

@@ -566,7 +566,7 @@ def test_psk31_text_parity_with_reference(tmp_path):
     exe = _build_char_harness(str(tmp_path), "psk31", _PSK31_HARNESS,
                               ["psk31.cc"])
     fs, spb = 2000, 64
-    text = "cq cq de tpu golden"
+    text = "cq cq de sdr golden"
     bits = varicode_encode_bits(text)
     bits = np.concatenate([np.ones(24, np.uint8), bits,
                            np.ones(24, np.uint8)])

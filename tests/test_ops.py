@@ -70,7 +70,7 @@ def test_fir_decimating_alignment(rng):
 
 
 @pytest.mark.parametrize("decim,order,cplx_x,cplx_k", [
-    (4, 68, True, True),    # the flagship IQBaseBand shape (MXU matmul path)
+    (4, 68, True, True),    # the flagship IQBaseBand shape (matmul path)
     (4, 68, False, True),
     (4, 68, True, False),
     (4, 68, False, False),
@@ -78,7 +78,7 @@ def test_fir_decimating_alignment(rng):
     (8, 100, False, False),
 ])
 def test_fir_matmul_path_matches_ring(rng, decim, order, cplx_x, cplx_k):
-    """The block-Toeplitz MXU matmul backend (large decimating blocks) must
+    """The block-Toeplitz matmul backend (large decimating blocks) must
     equal the per-sample ring oracle for every real/complex combination,
     including across block and frame boundaries."""
     n = 8192  # block 4096 >= 2 frames of S*decim -> matmul path engaged
@@ -422,50 +422,3 @@ def test_autocast_bf16_compute(rng):
                     jax.tree_util.tree_leaves(c2)):
         np.testing.assert_array_equal(np.asarray(a, np.float32),
                                       np.asarray(b, np.float32))
-
-
-def test_fm_fused_matches_unfused_streaming(rng):
-    """FMBasebandFused (the one-op FM front end core/fuse.py installs on
-    TPU) must match the unfused pipeline across MULTIPLE carried blocks —
-    lead/tail/prev/de-emphasis chaining included.  On CPU this exercises
-    the XLA fallback inside the fused op; the pallas path is covered by
-    interpret-mode and on-TPU drives."""
-    from libsdr_tpu.core import run_pipeline, stream_blocks
-    from libsdr_tpu.ops.fm_fused import FMBasebandFused
-
-    fs, bs, nblk = 192_000.0, 8192, 3
-    n = bs * nblk
-    audio_t = siggen.sine(fs, n, 700.0, amps=0.7)
-    iq = siggen.fm_modulate(fs, audio_t, deviation=15e3, carrier=24e3)
-
-    def mk_parts():
-        return (IQBaseBand(fc=24e3, width=50e3, order=48, decim=4,
-                           design="textbook"),
-                FMDemod(gain=1.3), FMDeemph())
-
-    bb, fm, de = mk_parts()
-    p_ref = Pipeline([bb, fm, de], optimize=False)
-    p_ref.bind(StreamSpec(jnp.complex64, fs, bs))
-    _, y_ref = run_pipeline(p_ref, stream_blocks(iq, bs))
-
-    bb2, fm2, de2 = mk_parts()
-    fused = FMBasebandFused(bb2, fm2)
-    fused.absorb_deemph(de2)
-    p_f = Pipeline([fused], optimize=False)
-    p_f.bind(StreamSpec(jnp.complex64, fs, bs))
-    _, y_f = run_pipeline(p_f, stream_blocks(iq, bs))
-
-    assert y_f.shape == y_ref.shape
-    assert snr_db(y_ref, y_f) > 60
-
-    # and without the deemph absorption
-    bb3, fm3, _ = mk_parts()
-    fused2 = FMBasebandFused(bb3, fm3)
-    p2 = Pipeline([fused2], optimize=False)
-    p2.bind(StreamSpec(jnp.complex64, fs, bs))
-    _, y2 = run_pipeline(p2, stream_blocks(iq, bs))
-    bb4, fm4, _ = mk_parts()
-    p3 = Pipeline([bb4, fm4], optimize=False)
-    p3.bind(StreamSpec(jnp.complex64, fs, bs))
-    _, y3 = run_pipeline(p3, stream_blocks(iq, bs))
-    assert snr_db(y3, y2) > 60

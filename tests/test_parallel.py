@@ -84,93 +84,91 @@ def test_gspmd_pipeline_matches_single_device(rng):
     np.testing.assert_allclose(np.asarray(y1), np.asarray(y2), atol=2e-4)
 
 
-def test_gspmd_step_never_traces_pallas(rng):
+@pytest.fixture
+def pll_kernel_interpret(monkeypatch):
+    """Dispatch the bit-sync PLL to its Pallas kernel (interpret mode) as
+    on a GPU backend, so the CPU mesh runs the kernel's program structure."""
+    import functools
+
+    from libsdr_tpu.ops import bitsync
+    from libsdr_tpu.ops.pll_triton import pll_triton
+
+    monkeypatch.setattr(bitsync, "use_kernel",
+                        lambda: not bitsync._KERNEL_OFF)
+    monkeypatch.setattr(bitsync, "pll_triton",
+                        functools.partial(pll_triton, interpret=True))
+
+
+def _pager_chain():
+    from libsdr_tpu.ops import ASKDetector, BitStream
+
+    return [IQBaseBand(fc=24e3, width=12.5e3, order=48, out_rate=48e3,
+                       design="textbook"),
+            FMDemod(), ASKDetector(invert=True),
+            BitStream(1200.0, mode="normal")]
+
+
+def test_gspmd_step_never_traces_pallas(rng, pll_kernel_interpret):
     """A pallas_call has no GSPMD partitioning rule: on a >1-device mesh
     XLA would wrap it in an all-gather of the full operands (or fail to
-    compile) — per-chip throughput would collapse ~8x the moment a second
-    chip joins.  shard_pipeline_step therefore forces kernel dispatch OFF
-    for the partitioned trace.  Assert it structurally: even with kernels
-    force-enabled (interpret mode, wide bank, kernel-supported shapes) the
-    sharded step's jaxpr contains NO pallas_call, while the same pipeline
-    traced unsharded contains at least one."""
+    compile).  shard_pipeline_step therefore keeps the PLL kernel out of
+    the partitioned trace (ops/bitsync.kernel_mode('off')).  Assert it
+    structurally: with the kernel dispatched, the sharded step's jaxpr
+    contains NO pallas_call, while the same pipeline traced unsharded
+    contains one."""
     import jax
-
-    from libsdr_tpu.ops.fir import kernel_mode
 
     n_ch, fs, b = 128, 192_000.0, 16384
     x = (rng.normal(size=(n_ch, b)) + 1j * rng.normal(size=(n_ch, b))
          ).astype(np.complex64)
 
     def build():
-        p = Pipeline([IQBaseBand(fc=24e3, width=12.5e3, order=48,
-                                 out_rate=48e3, design="textbook"),
-                      FMDemod()])
-        with kernel_mode("interpret"):
-            p.bind(StreamSpec(np.complex64, fs, b, channels=(n_ch,)))
+        p = Pipeline(_pager_chain())
+        p.bind(StreamSpec(np.complex64, fs, b, channels=(n_ch,)))
         return p
 
-    with kernel_mode("interpret"):
-        p1 = build()
-        solo = jax.make_jaxpr(p1.apply)(p1.init_carry(), cplx.as_block(x))
-        assert "pallas_call" in str(solo), "fixture lost its kernel path"
+    p1 = build()
+    solo = jax.make_jaxpr(p1.apply)(p1.init_carry(), cplx.as_block(x))
+    assert "pallas_call" in str(solo), "fixture lost its kernel path"
 
-        p2 = build()
-        mesh = make_mesh(n_channel=4, n_time=2)
-        step, place, carry = shard_pipeline_step(p2, mesh)
-        sharded = jax.make_jaxpr(
-            lambda c, xx: step.__wrapped__(c, xx))(carry, place(x))
-        assert "pallas_call" not in str(sharded)
+    p2 = build()
+    mesh = make_mesh(n_channel=4, n_time=2)
+    step, place, carry = shard_pipeline_step(p2, mesh)
+    sharded = jax.make_jaxpr(
+        lambda c, xx: step.__wrapped__(c, xx))(carry, place(x))
+    assert "pallas_call" not in str(sharded)
 
 
-def test_shard_map_pipeline_keeps_kernels_bitexact(rng):
+def test_shard_map_pipeline_keeps_kernels_bitexact(rng, pll_kernel_interpret):
     """shard_map_pipeline_step is the kernel-capable alternative to the
-    GSPMD path for CHANNELWISE pipelines: each device runs the fused FM
-    kernel on its own channel group (device-local operands — the sharding
-    under which a pallas_call is legal), the sharded jaxpr CONTAINS the
-    pallas_call the GSPMD path must strip, and the audio is bit-identical
-    to the n=1 run."""
+    GSPMD path for CHANNELWISE pipelines: each device runs the PLL kernel
+    on its own channel group (device-local operands — the sharding under
+    which a pallas_call is legal), the sharded jaxpr CONTAINS the
+    pallas_call the GSPMD path must strip, and the bits are identical to
+    the n=1 run."""
     import jax
 
-    from libsdr_tpu.ops import FMDeemph
-    from libsdr_tpu.ops.fir import kernel_mode
-    from libsdr_tpu.ops.fm_fused import FMBasebandFused
     from libsdr_tpu.parallel.mesh import shard_map_pipeline_step
 
-    n_ch, fs, b, n_dev = 512, 192_000.0, 8192, 8
+    n_ch, fs, b, n_dev = 256, 192_000.0, 8192, 8
     x = (rng.normal(size=(n_ch, b)) + 1j * rng.normal(size=(n_ch, b))
          ).astype(np.complex64)
-
-    from libsdr_tpu.ops import AGC, AMDemod
-
-    chains = {
-        "fm": lambda: [IQBaseBand(fc=24e3, width=12.5e3, order=48,
-                                  out_rate=48e3, design="textbook"),
-                       FMDemod(), FMDeemph()],
-        # different fused op + AGC carry leaves (per-channel IIR state)
-        "am": lambda: [IQBaseBand(fc=24e3, width=12.5e3, order=48,
-                                  out_rate=48e3, design="textbook"),
-                       AMDemod(), AGC(tau=0.03)],
-    }
-    for name, stages in chains.items():
-        outs = {}
-        with kernel_mode("interpret"):
-            for n in (1, n_dev):
-                p = Pipeline(stages())
-                p.bind(StreamSpec(np.complex64, fs, b, channels=(n_ch,)))
-                if name == "fm":
-                    assert any(isinstance(s, FMBasebandFused)
-                               for s in p.stages)
-                mesh = Mesh(np.asarray(jax.devices()[:n]), ("ch",))
-                step, place, carry = shard_map_pipeline_step(p, mesh)
-                if n > 1:
-                    jx = jax.make_jaxpr(
-                        lambda c, xx: step.__wrapped__(c, xx))(carry,
-                                                               place(x))
-                    assert "pallas_call" in str(jx), \
-                        f"{name}: kernel did not survive the shard_map trace"
-                _, y = step(carry, place(x))
-                outs[n] = np.asarray(y)
-        np.testing.assert_array_equal(outs[1], outs[n_dev], err_msg=name)
+    outs = {}
+    for n in (1, n_dev):
+        p = Pipeline(_pager_chain())
+        p.bind(StreamSpec(np.complex64, fs, b, channels=(n_ch,)))
+        mesh = Mesh(np.asarray(jax.devices()[:n]), ("ch",))
+        step, place, carry = shard_map_pipeline_step(p, mesh)
+        if n > 1:
+            jx = jax.make_jaxpr(
+                lambda c, xx: step.__wrapped__(c, xx))(carry, place(x))
+            assert "pallas_call" in str(jx), \
+                "kernel did not survive the shard_map trace"
+        _, y = step(carry, place(x))
+        outs[n] = (np.asarray(y.data), np.asarray(y.valid))
+    np.testing.assert_array_equal(outs[1][1], outs[n_dev][1])
+    np.testing.assert_array_equal(outs[1][0] * outs[1][1],
+                                  outs[n_dev][0] * outs[n_dev][1])
 
 
 def test_wideband_sharded_pipeline():
@@ -240,41 +238,34 @@ def test_wideband_matches_local_channelizer(rng):
     np.testing.assert_allclose(got, want, atol=1e-3)
 
 
-def test_wideband_shard_map_runs_real_kernel_interpret():
-    """The n=8 shard_map body executes the REAL fused PFB+FM Pallas kernel
-    (interpret mode) inside a multi-device program — the single-chip fast
-    path and the multi-chip path are the same program, and the audio is
-    BIT-IDENTICAL to the n=1 kernel run across streamed blocks: the
-    shard-boundary discriminator seed is the left neighbor's
-    kernel-exported y_last (a (1, M) ppermute + row-0 re-demod with the
-    kernel's own op sequence), never an XLA recompute."""
-    from libsdr_tpu.ops.fir import kernel_mode
+def test_wideband_fm_local_matches_channelizer_fm(rng):
+    """The scanner's fused-stage body (parallel/wideband.wideband_fm_local:
+    channelize + discriminator in time-major channel order) streams
+    bit-identically to the Channelizer -> FMDemod pipeline."""
+    from libsdr_tpu.parallel.wideband import _taps, wideband_fm_local
 
-    m, p, n_dev = 128, 8, 8
-    block = m * n_dev * 16          # 16 frames per device segment
-    rng = np.random.default_rng(7)
-    x = (rng.normal(size=2 * block) + 1j * rng.normal(size=2 * block)
-         ).astype(np.complex64) * 0.5
-
-    outs = {}
-    for n in (1, n_dev):
-        mesh = Mesh(np.asarray(jax.devices()[:n]), ("d",))
-        with kernel_mode("interpret"):
-            step, init_carry, place = build_wideband_step(mesh, m, block)
-            c = init_carry()
-            got = []
-            for i in range(2):
-                c, y = step(c, place(x[i * block:(i + 1) * block]))
-                got.append(np.asarray(y))
-        outs[n] = np.concatenate(got, axis=-1)
-    np.testing.assert_array_equal(outs[1], outs[n_dev])
+    m, p, b = 16, 8, 16 * 64
+    x = (rng.normal(size=3 * b) + 1j * rng.normal(size=3 * b)
+         ).astype(np.complex64)
+    pipe = Pipeline([Channelizer(m, taps_per_branch=p), FMDemod()])
+    pipe.bind(StreamSpec(np.complex64, m * 25_000.0, b))
+    pc = pipe.init_carry()
+    hist = cplx.zeros((p, m))
+    prev = cplx.full_like_phasor((1, m))
+    taps = _taps(m, p)
+    for i in range(3):
+        xb = cplx.as_block(x[i * b:(i + 1) * b])
+        pc, want = pipe.apply(pc, xb)
+        audio, prev = wideband_fm_local(xb, hist, prev, taps, m, p)
+        hist = xb[(b // m - p) * m:].reshape((p, m))
+        np.testing.assert_array_equal(np.asarray(audio).T, np.asarray(want))
 
 
 @pytest.mark.parametrize("p", [3, 8])
 def test_wideband_multidevice_bitexact_fallback(p):
-    """n=8 vs n=1 on the asserted-identical XLA fallback path: bit-exact
-    (covers the halo, the ppermuted neighbor-computed discriminator seed,
-    and the lane->channel reorder + all_to_all reshard) — at the default
+    """n=8 vs n=1: bit-exact on the CPU (covers the halo, the ppermuted
+    neighbor-computed discriminator seed, and the all_to_all reshard) —
+    at the default
     polyphase depth and an odd one (the seed recompute spans P+1 frames
     of the local tail)."""
     m, n_dev = 16, 8
@@ -429,9 +420,8 @@ def test_hot_path_collective_inventory():
     last channelizer output — the shard-boundary discriminator seed), and
     small-state all-gathers only (carry tails, <1% of the block
     bytes).  No all-reduce, no bulk-data all-gather: nothing re-replicates
-    the wideband stream, so per-chip work stays 1/n of the block and the
-    ICI carries ~1x the (decimated) audio bytes per step — the structural
-    basis of the >=0.9 scaling-efficiency target (DEPLOYMENT.md roofline)."""
+    the wideband stream, so per-device work stays 1/n of the block and the
+    interconnect carries ~1x the (decimated) audio bytes per step."""
     from libsdr_tpu.parallel.wideband import build_scanner_step
 
     m, n, p = 16, 8, 8
@@ -538,47 +528,44 @@ def test_sharded_multimode_matches_single_device():
             np.testing.assert_array_equal(d1 * v1, dn * vn)
 
 
-def test_multimode_shard_map_runs_real_kernel_interpret():
-    """The n=8 multimode body executes the REAL fused PFB Pallas kernel
-    (interpret mode) for its channelize stage — bit-identical to the n=1
-    kernel run, and within a small bit-flip fraction of the XLA path
-    (thresholded bits can flip on near-tie samples)."""
+def test_multimode_shard_map_runs_real_kernel_interpret(pll_kernel_interpret):
+    """The n=8 multimode body executes the PLL Pallas kernel (interpret
+    mode) on each device's stacked BitStream lanes — bit-identical to the
+    n=1 kernel run and to the n=8 scan."""
     from jax.sharding import Mesh
-    from libsdr_tpu.ops.fir import kernel_mode
-    from libsdr_tpu.ops.pallas_pfb import mxu_pfb_supported
+    from libsdr_tpu.ops.bitsync import kernel_mode
     from libsdr_tpu.parallel.multimode import build_multimode_step
 
-    m, n_dev = 128, 8
+    m, n_dev = 64, 8
     fs = m * 24_000.0
     t_full = 128
     block = m * t_full
     pattern = ("pocsag", "ax25")
-    assert mxu_pfb_supported(m, t_full // n_dev, 8)   # no silent fallback
     rng = np.random.default_rng(3)
     x = (rng.normal(size=block) + 1j * rng.normal(size=block)
          ).astype(np.complex64) * 0.4
 
     outs = {}
-    for label, n, mode in (("k1", 1, "interpret"), ("k8", n_dev, "interpret"),
-                           ("x8", n_dev, "off")):
+    for label, n, mode in (("k1", 1, "auto"), ("k8", n_dev, "auto"),
+                           ("s8", n_dev, "off")):
         mesh = Mesh(np.asarray(jax.devices()[:n]), ("d",))
         with kernel_mode(mode):
             step, init_carry, place, _ = build_multimode_step(
                 mesh, m, block, fs, pattern)
             c = init_carry()
+            if label == "k8":
+                jx = jax.make_jaxpr(step)(c, place(x))
+                assert "pallas_call" in str(jx)
             c, o = step(c, place(x))
         outs[label] = {md: (np.asarray(r.data), np.asarray(r.valid))
                        for md, r in o.items()}
     for md in pattern:
-        # kernel path: n=1 vs n=8 bit-identical
-        np.testing.assert_array_equal(outs["k1"][md][1], outs["k8"][md][1])
-        np.testing.assert_array_equal(
-            outs["k1"][md][0] * outs["k1"][md][1],
-            outs["k8"][md][0] * outs["k8"][md][1])
-        # kernel vs XLA: same bit count scale, tiny flip fraction
-        vk, vx = outs["k8"][md][1], outs["x8"][md][1]
-        agree = (outs["k8"][md][0] * vk) == (outs["x8"][md][0] * vx)
-        assert agree.mean() > 0.99, agree.mean()
+        for other in ("k1", "s8"):
+            np.testing.assert_array_equal(outs[other][md][1],
+                                          outs["k8"][md][1])
+            np.testing.assert_array_equal(
+                outs[other][md][0] * outs[other][md][1],
+                outs["k8"][md][0] * outs["k8"][md][1])
 
 
 def test_sharded_multimode_decodes_mixed_band():
@@ -608,7 +595,7 @@ def test_sharded_multimode_decodes_mixed_band():
     assert frames and frames[0][0].frm.call == "K3MM"
     assert frames[0][1] is not None          # APRS position parsed
     assert "MULTI" in decoded[14]
-    assert "cq tpu" in decoded[19]
+    assert "cq sdr" in decoded[19]
     # No silence assertion for the other channels: the noise-free fixture's
     # square-FSK splatter is CORRELATED leakage, which the unsquelched
     # demod chains happily decode on other channels too (the single-chip
@@ -642,7 +629,7 @@ def test_sharded_multimode_bf16_wire(tmp_path):
     frames = decoded[9]
     assert frames and frames[0][0].frm.call == "K3MM"
     assert "MULTI" in decoded[14]
-    assert "cq tpu" in decoded[19]
+    assert "cq sdr" in decoded[19]
 
 
 def test_sharded_scanner_matches_single_device():

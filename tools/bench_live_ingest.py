@@ -2,11 +2,11 @@
 
 Measures how fast the native live path terminates a u8 IQ wire: localhost
 TCP blast -> LivePump driver thread -> SPSC ring -> block take -> LUT
-conversion (u8 -> f32 planes and u8 -> bf16 planes).  This is the TPU-host
-analog of the reference's implied realtime design point — an RTL2832
+conversion (u8 -> f32 planes and u8 -> bf16 planes).  This is the
+accelerator-host analog of the reference's implied realtime design point — an RTL2832
 sustains <= 2.4 Msps cu8 through its driver thread (reference:
 src/rtlsource.cc:78-89) — and bounds how many dongle-equivalents one host
-can terminate.  No TPU involved: the number is valid on any backend (the
+can terminate.  No device involved: the number is valid on any backend (the
 device side is covered by DECODERBANK's pump_fed capacity).
 
 Prints one JSON object and writes LIVEINGEST_r*.json.
@@ -86,7 +86,7 @@ def main() -> None:
     out.update(run(lambda raw: None, "transport"))
     # + u8 -> f32 planes (the complex64 consumer path)
     out.update(run(lambda raw: u8_iq_to_planar(raw), "f32"))
-    # + u8 -> bf16 planes (the production TPU ingest format)
+    # + u8 -> bf16 planes (the production device ingest format)
     out.update(run(lambda raw: u8_iq_to_planar_bf16(raw), "bf16"))
     out["metric"] = ("live u8 IQ wire termination capacity, complex "
                      "Msamples/s sustained (localhost TCP -> native pump "

@@ -1,8 +1,5 @@
 """Per-mode receiver throughput — the apps/rx.py demodulator configurations
-plus the AX.25/FSK chain, as multi-channel banks on one chip.
-
-For AM the fused [IQBaseBand -> AMDemod -> AGC] kernel path is compared
-against the unfused stage pipeline (fusion disabled) to record the delta.
+plus the AX.25/FSK chain, as multi-channel banks on one GPU.
 
 Usage: python tools/bench_rx_modes.py [--channels 64] [--block 16777216]
 Prints one JSON object.
@@ -54,7 +51,7 @@ def main() -> None:
 
     import jax
     from libsdr_tpu import Pipeline, StreamSpec
-    from libsdr_tpu.core import cplx, fuse
+    from libsdr_tpu.core import cplx
     from libsdr_tpu.ops import (AGC, AMDemod, ASKDetector, BitStream,
                                 FMDemod, FMDeemph, FSKDetector, IQBaseBand,
                                 USBDemod)
@@ -82,31 +79,12 @@ def main() -> None:
         p.bind(StreamSpec(np.complex64, fs, block, channels=(n_ch,)))
         t = bench(p.compile(), p.init_carry(), x)
         out[f"{name}_msps"] = round(n_ch * block / t / 1e6, 1)
-        if name == "am":
-            # delta vs the unfused stage pipeline (fusion pass disabled)
-            p2 = Pipeline([IQBaseBand(fc=fs / 8, width=10e3, order=64,
-                                      decim=8, design="textbook"),
-                           AMDemod(), AGC()])
-            orig = fuse.fuse_stages
-            fuse.fuse_stages = lambda s: s
-            try:
-                p2.bind(StreamSpec(np.complex64, fs, block,
-                                   channels=(n_ch,)))
-            finally:
-                fuse.fuse_stages = orig
-            t2 = bench(p2.compile(), p2.init_carry(), x)
-            out["am_unfused_msps"] = round(n_ch * block / t2 / 1e6, 1)
 
     # AX.25/AFSK chain (examples/sdr_ax25.cc): baseband -> FM -> FSK
-    # correlators -> bit-sync PLL, at the reference's audio rates.  Run
-    # fused (the fusion pass installs AFSKFrontendFused; >=64 channels on
-    # the TPU takes the single-MXU-pass Pallas kernel,
-    # ops/pallas_fir_mxu.fir_afsk_exact) AND unfused (fusion disabled: the
-    # stage pipeline's overlap-save FIR + XLA demod/correlators), so the
-    # artifact records the fused front end's measured delta.
+    # correlators -> bit-sync PLL, at the reference's audio rates.
     fs2 = 192_000.0
 
-    def afsk_bank(n, blk, fused):
+    def afsk_bank(n, blk):
         xa = cplx.Complex(jax.random.normal(key, (n, blk), np.float32),
                           jax.random.normal(jax.random.PRNGKey(n % 97),
                                             (n, blk), np.float32))
@@ -115,28 +93,19 @@ def main() -> None:
                       FMDemod(),
                       FSKDetector(1200.0, 1200.0, 2200.0),
                       BitStream(1200.0, mode="transition")])
-        orig = fuse.fuse_stages
-        if not fused:
-            fuse.fuse_stages = lambda s: s
-        try:
-            p.bind(StreamSpec(np.complex64, fs2, blk, channels=(n,)))
-        finally:
-            fuse.fuse_stages = orig
+        p.bind(StreamSpec(np.complex64, fs2, blk, channels=(n,)))
         t = bench(p.compile(), p.init_carry(), xa)
         return round(n * blk / t / 1e6, 1)
 
     blk2 = 1 << 21
-    out["ax25_chain_msps"] = afsk_bank(n_ch, blk2, fused=True)
-    out["ax25_unfused_msps"] = afsk_bank(n_ch, blk2, fused=False)
-
-    # wide bank: same total samples/step as above but 4x the channels on
-    # 1/4 the block — the bit-sync PLL's sequential scan runs per TIME
-    # step across all channel lanes at once (VPU), so the wider/shorter
-    # layout shortens the scan 4x at equal work.
+    out["ax25_chain_msps"] = afsk_bank(n_ch, blk2)
+    # wide bank: same total samples/step but 4x the channels on 1/4 the
+    # block — the bit-sync PLL walks time sequentially with all channel
+    # lanes in parallel, so the wider/shorter layout shortens that walk 4x
+    # at equal work.
     n_wide = 4 * n_ch
     out["ax25_wide_channels"] = n_wide
-    out["ax25_wide_msps"] = afsk_bank(n_wide, blk2 // 4, fused=True)
-    out["ax25_wide_unfused_msps"] = afsk_bank(n_wide, blk2 // 4, fused=False)
+    out["ax25_wide_msps"] = afsk_bank(n_wide, blk2 // 4)
 
     out["metric"] = "per-mode receiver bank Msamples/s/chip (apps/rx.py)"
     out["protocol"] = "carry-chained steps, single forced readback ends the timed region, best of runs (BASELINE.md timing protocol)"

@@ -1,7 +1,6 @@
 """Streaming throughput vs chunks_per_dispatch (Pipeline.compile_chunked /
 run_pipeline(chunks_per_dispatch=K)) — both chunked modes: the production
-UNROLLED tuple-of-blocks step and the retired lax.scan stacked mode
-(kept to document its staging-copy regression, STREAMING_r04), on the
+UNROLLED tuple-of-blocks step and the lax.scan stacked mode, on the
 128-channel x 512k FM bank plus a true small-block low-latency section.
 Prints one JSON object and writes STREAMING_r*.json.
 """
@@ -76,8 +75,7 @@ def main() -> None:
         out[f"k{k}_msps"] = round(msps, 1)
         out[f"k{k}_latency_ms"] = round(best * 1e3, 3)
         del xs_t  # free the K distinct input planes before the scan row
-        # comparison row: the lax.scan K-stacked mode (STREAMING_r04's
-        # measured regression — kept so the r04->r05 delta is in-artifact)
+        # comparison row: the lax.scan K-stacked mode
         xs_s = cplx.Complex(jnp.broadcast_to(x1.re, (k,) + x1.re.shape),
                             jnp.broadcast_to(x1.im, (k,) + x1.im.shape))
         msps_s, _ = measure(p.compile_chunked("scan"), xs_s, k, force1)
@@ -136,9 +134,8 @@ def main() -> None:
     out["protocol"] = (
         "carry-chained dispatches, single forced readback per timed run "
         "(BASELINE.md).  k{K}_msps = the production unrolled "
-        "tuple-of-blocks chunked step; k{K}_scan_msps = the retired "
-        "lax.scan stacked mode, kept to document its measured staging-copy "
-        "regression (STREAMING_r04).")
+        "tuple-of-blocks chunked step; k{K}_scan_msps = the lax.scan "
+        "stacked mode.")
     print(json.dumps(out))
     from tools._artifact import write_artifact
     write_artifact("STREAMING", out)
